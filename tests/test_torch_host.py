@@ -1,0 +1,148 @@
+"""Host-side twins of the port (svgrasterize_tpu_torch) against the JAX
+package: geometry, parsing and PNG encoding must be exactly equal; the port
+must import without jax; and what the port's slice lacks must raise
+NotImplementedError instead of rendering something else.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from svgrasterize_tpu import scene_from_str as j_scene_from_str
+from svgrasterize_tpu.core import png as j_png
+from svgrasterize_tpu.core.transform import Transform as JTransform
+from svgrasterize_tpu.frontend import parsers as j_parsers
+from svgrasterize_tpu.geom.path import Path as JPath
+from svgrasterize_tpu.utils.constants import FLATNESS
+
+from svgrasterize_tpu_torch import scene_from_str as t_scene_from_str
+from svgrasterize_tpu_torch.core import png as t_png
+from svgrasterize_tpu_torch.core.transform import Transform as TTransform
+from svgrasterize_tpu_torch.frontend import parsers as t_parsers
+from svgrasterize_tpu_torch.geom.path import Path as TPath
+from svgrasterize_tpu_torch.render_plan import (
+    compile_scene,
+    lower_scene,
+    plan_from_lowered,
+    render_fast,
+)
+
+from test_torch_lowering import DOCS, J_FONTS, T_FONTS, jax_lower
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PATHS = [
+    "M10 10 L50 12 L30 40 Z",
+    "M5 5 C 40 0, 0 40, 45 45 S 80 10, 60 60 Q 30 70 10 50 T 5 5 Z",
+    "M20 20 A 15 10 30 1 0 60 40 A 5 5 0 0 1 70 30 Z M30 30 h10 v10 h-10 z",
+]
+TR = (1.5, 0.2, -0.3, 1.2, 3.0, 4.0)
+
+
+@pytest.mark.parametrize("d", PATHS)
+def test_flatten_matches(d):
+    jt = JTransform().matrix(*TR)
+    tt = TTransform().matrix(*TR)
+    a = JPath.from_svg(d).flatten(jt, FLATNESS)
+    b = TPath.from_svg(d).flatten(tt, FLATNESS)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("join,cap", [("miter", "butt"), ("round", "round"), ("bevel", "square")])
+def test_stroke_outlines_match(join, cap):
+    d = PATHS[1]
+    a = JPath.from_svg(d).stroke(3.5, cap, join).flatten(JTransform(), FLATNESS)
+    b = TPath.from_svg(d).stroke(3.5, cap, join).flatten(TTransform(), FLATNESS)
+    assert a.size and np.array_equal(a, b)
+
+
+def test_colors_and_transforms_match():
+    for text in ("#d04020", "#abc", "red", "rgb(10, 200, 30)", "rgba(10,20,30,0.5)",
+                 "hsl(120, 50%, 40%)"):
+        a, b = j_parsers.parse_color(text), t_parsers.parse_color(text)
+        assert (a is None and b is None) or np.array_equal(a, b), text
+    for text in ("translate(3 4) rotate(30 5 6) scale(2, 0.5)",
+                 "matrix(1 0.2 -0.3 1.1 5 6) skewX(12) skewY(-7)"):
+        assert np.array_equal(j_parsers.parse_transform(text).m,
+                              t_parsers.parse_transform(text).m), text
+
+
+def test_png_bytes_match():
+    rng = np.random.default_rng(0)
+    image = rng.uniform(0, 1, (23, 37, 4))
+    a = j_png.write_png(image, io.BytesIO()).getvalue()
+    b = t_png.write_png(image, io.BytesIO()).getvalue()
+    assert a == b
+    assert np.array_equal(t_png.read_png(b), j_png.read_png(a))
+
+
+@pytest.mark.parametrize("name", ["features", "flat"])
+def test_scene_repr_and_to_path_match(name):
+    js, j_ids, j_size = j_scene_from_str(DOCS[name], fonts=J_FONTS)
+    ts, t_ids, t_size = t_scene_from_str(DOCS[name], fonts=T_FONTS)
+    assert repr(js) == repr(ts)
+    assert j_size == t_size and sorted(j_ids) == sorted(t_ids)
+    jp = js.to_path(JTransform().matrix(0, 1, 0, 1, 0, 0))
+    tp = ts.to_path(TTransform().matrix(0, 1, 0, 1, 0, 0))
+    assert jp.to_svg() == tp.to_svg()
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import svgrasterize_tpu_torch, svgrasterize_tpu_torch.cli\n"
+        "import svgrasterize_tpu_torch.render_plan, svgrasterize_tpu_torch.ops.fused_exec\n"
+        "import svgrasterize_tpu_torch.ops.cuda_lib, chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'svgrasterize_tpu' or m.startswith('svgrasterize_tpu.')]\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        check=True, timeout=120,
+    )
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+GROUP_OPACITY = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
+<g opacity='0.5'><rect x='4' y='4' width='30' height='20' fill='red'/>
+<circle cx='30' cy='24' r='12' fill='blue'/></g></svg>"""
+PATTERN = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
+<defs><pattern id='p' width='8' height='8' patternUnits='userSpaceOnUse'>
+<rect width='4' height='4' fill='#d04020'/></pattern></defs>
+<rect x='4' y='4' width='50' height='30' fill='url(#p)'/></svg>"""
+MASK = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
+<defs><mask id='m'><circle cx='30' cy='24' r='16' fill='white'/></mask></defs>
+<rect x='4' y='4' width='50' height='30' fill='#2060c0' mask='url(#m)'/></svg>"""
+FILTER = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
+<defs><filter id='f'><feGaussianBlur stdDeviation='2'/></filter></defs>
+<circle cx='30' cy='24' r='12' fill='#a0b020' filter='url(#f)'/></svg>"""
+
+
+@pytest.mark.parametrize("svg", [GROUP_OPACITY, PATTERN, MASK, FILTER],
+                         ids=["group_opacity", "pattern", "mask", "filter"])
+def test_unported_features_raise(svg):
+    scene, _ids, (w, h) = t_scene_from_str(svg)
+    tr = TTransform().matrix(0, 1, 0, 1, 0, 0)
+    vp = (0, 0, int(h), int(w))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        render_fast(scene, tr, vp, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        compile_scene(scene, tr, vp, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        lower_scene(scene, tr, vp, False, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        scene.render(tr, viewport=vp)
+
+
+def test_jax_plan_with_passes_is_refused():
+    lowered = jax_lower(GROUP_OPACITY, 32)
+    assert lowered.groups
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        plan_from_lowered(lowered, "cpu")
