@@ -6,14 +6,18 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the two hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
-with nvcc, holds each against its plain PyTorch version on the card, then
-drives the port's main path: the CLI renders a generated 1,536-draw
-document at 1488 x 1488, and a compiled scene of the same document serves
-5 frames at 3840 x 3840.  Each phase prints one line; any failure exits
-non-zero.  The line before the last is a JSON object with per-kernel
-launches, errors and times; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+It builds the four hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
+with nvcc (one process per source, in parallel), holds each against its
+plain PyTorch version on the card, then drives the port's main paths: the
+CLI renders a generated pass-free 1,536-draw document at 1488 x 1488 and a
+compiled scene of it serves 5 frames at 3840 x 3840; the CLI renders a
+generated document full of isolation passes (group opacity, masks, clips,
+filters) at 1488 x 1488, and a compiled stress document of 2,000 draws and
+opacity groups serves at 1024 x 1024.  Launch counts are set to 0 just
+before each path and read just after it.  Each phase prints one line; any
+failure exits non-zero.  The line before the last is a JSON object with
+per-kernel launches (summed over the paths), errors and times; the last
+line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without a CUDA device it exits non-zero and prints no result.  It imports
 nothing of JAX.
@@ -33,12 +37,16 @@ import numpy as np
 
 PREPASS_TOL = 1e-4  # same f32 closed form; only the summation order differs
 SCENE_TOL = 1e-4  # per-pixel sums of the same terms in another order
+BLUR_TOL = 1e-5  # the same band products, summed in another order
 PNG_TOL = 1  # 8-bit steps: ~1e-6 differences at a .5 boundary flip one step
 
 CLI_SIZE = 1488
 CLI_DRAWS = 1536
 SERVE_WIDTH = 3840
 SERVE_FRAMES = 5
+PASS_DRAWS = 768
+STRESS_DRAWS = 2000
+STRESS_SIZE = 1024
 
 
 # ----------------------------------------------------------------------------
@@ -178,6 +186,123 @@ def flat_doc(n_draws: int, size: int, seed: int) -> str:
     )
 
 
+def pass_doc(n_draws: int, size: int, seed: int) -> str:
+    """A document of isolation passes on a size x size canvas, icon-sheet
+    like: n_draws plain draws, and among them 64 opacity groups of 3
+    draws, 12 gradient masks, 12 anti-aliased clip paths over multi-draw
+    groups, 24 lone feGaussianBlur filters (stdDeviation 1-8, some
+    anisotropic, some on SourceAlpha), 8 drop-shadow chains, 8
+    colour-matrix / composite chains and 8 filters nested inside opacity
+    groups (so the plan has at least 2 dependency levels)."""
+    rng = np.random.default_rng(seed)
+    s = size / 1488.0
+
+    def color():
+        return "#%02x%02x%02x" % tuple(int(v) for v in rng.integers(0, 256, 3))
+
+    def xy():
+        return rng.uniform(0.02, 0.9, 2) * size
+
+    defs = []
+    for g in range(8):
+        stops = "".join(
+            f"<stop offset='{o:.2f}' stop-color='{color()}'/>" for o in (0.0, 0.5, 1.0)
+        )
+        defs.append(
+            f"<linearGradient id='g{g}' x1='0' y1='0' x2='{rng.uniform(0.4, 1):.2f}'"
+            f" y2='{rng.uniform(0, 1):.2f}'>{stops}</linearGradient>"
+        )
+    for m in range(12):
+        defs.append(
+            f"<linearGradient id='mg{m}' x1='0' y1='0' x2='1' y2='{rng.uniform(0, 1):.2f}'>"
+            "<stop offset='0' stop-color='white'/><stop offset='1' stop-color='#101010'/>"
+            f"</linearGradient><mask id='m{m}' maskContentUnits='objectBoundingBox'>"
+            f"<rect x='0' y='0' width='1' height='1' fill='url(#mg{m})'/></mask>"
+        )
+    for c in range(12):
+        cx, cy = xy()
+        r = rng.uniform(30, 90) * s
+        shape = (f"<circle cx='{cx:.1f}' cy='{cy:.1f}' r='{r:.1f}'/>" if c % 2 == 0 else
+                 f"<rect x='{cx - r:.1f}' y='{cy - r / 2:.1f}' width='{2 * r:.1f}'"
+                 f" height='{r:.1f}' transform='rotate({rng.uniform(5, 80):.1f}"
+                 f" {cx:.1f} {cy:.1f})'/>")
+        defs.append(f"<clipPath id='c{c}'>{shape}</clipPath>")
+    for b in range(24):
+        sx = rng.uniform(1, 8)
+        std = f"{sx:.2f}" if b % 3 else f"{sx:.2f} {rng.uniform(1, 8):.2f}"
+        src = " in='SourceAlpha'" if b % 4 == 1 else ""
+        defs.append(f"<filter id='b{b}'><feGaussianBlur{src} stdDeviation='{std}'/></filter>")
+    for d in range(8):
+        defs.append(
+            f"<filter id='ds{d}'><feGaussianBlur in='SourceAlpha'"
+            f" stdDeviation='{rng.uniform(1, 4):.2f}' result='blur'/>"
+            f"<feOffset in='blur' dx='{rng.uniform(2, 8):.1f}' dy='{rng.uniform(2, 8):.1f}'"
+            " result='shadow'/><feMerge><feMergeNode in='shadow'/>"
+            "<feMergeNode in='SourceGraphic'/></feMerge></filter>"
+        )
+    ops = ("atop", "in", "out", "xor")
+    for k in range(8):
+        cm = (f"type='saturate' values='{rng.uniform(0, 1):.2f}'" if k % 2 == 0 else
+              f"type='hueRotate' values='{rng.uniform(0, 360):.0f}'")
+        comp = (f"operator='{ops[k % 4]}'" if k < 4 else
+                "operator='arithmetic' k1='0.2' k2='0.6' k3='0.4' k4='0'")
+        defs.append(
+            f"<filter id='cm{k}'><feColorMatrix {cm} result='c'/>"
+            f"<feComposite in='c' in2='SourceGraphic' {comp}/></filter>"
+        )
+
+    def shape(extent, attrs):
+        x, y = xy()
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            return (f"<rect x='{x:.1f}' y='{y:.1f}' width='{extent:.1f}'"
+                    f" height='{extent * rng.uniform(0.4, 1.2):.1f}'{attrs}/>")
+        if kind == 1:
+            return f"<circle cx='{x:.1f}' cy='{y:.1f}' r='{extent / 2:.1f}'{attrs}/>"
+        pts = rng.uniform(0, extent, (3, 2)) + (x, y)
+        return (f"<path d='M{x:.1f} {y:.1f} Q{pts[0, 0]:.1f} {pts[0, 1]:.1f}"
+                f" {pts[1, 0]:.1f} {pts[1, 1]:.1f} T{pts[2, 0]:.1f} {pts[2, 1]:.1f} Z'{attrs}/>")
+
+    def paint():
+        if rng.random() < 0.6:
+            return f" fill='{color()}'"
+        return f" fill='url(#g{int(rng.integers(0, 8))})'"
+
+    def draw(lo=8, hi=80):
+        attrs = paint()
+        if rng.random() < 0.3:
+            attrs += f" fill-opacity='{rng.uniform(0.4, 1):.2f}'"
+        return shape(rng.uniform(lo, hi) * s, attrs)
+
+    specials = (
+        [lambda k: f"<g opacity='{rng.uniform(0.3, 0.8):.2f}'>{draw()}{draw()}{draw()}</g>"] * 64
+        + [lambda k: f"<g mask='url(#m{k % 12})'>{draw(40, 140)}{draw(20, 80)}</g>"] * 12
+        + [lambda k: f"<g clip-path='url(#c{k % 12})'>{draw(60, 200)}{draw(40, 140)}"
+                     f"{draw(20, 80)}</g>"] * 12
+        + [lambda k: shape(rng.uniform(16, 120) * s, paint() + f" filter='url(#b{k % 24})'")] * 24
+        + [lambda k: shape(rng.uniform(20, 90) * s, paint() + f" filter='url(#ds{k % 8})'")] * 8
+        + [lambda k: shape(rng.uniform(20, 90) * s, paint() + f" filter='url(#cm{k % 8})'")] * 8
+        + [lambda k: f"<g opacity='{rng.uniform(0.4, 0.9):.2f}'>"
+                     + shape(rng.uniform(16, 80) * s, paint() + f" filter='url(#b{k % 24})'")
+                     + draw() + "</g>"] * 8
+    )
+    order = rng.permutation(len(specials))
+    every = max(1, n_draws // len(specials))
+    body = []
+    k = 0
+    for i in range(n_draws):
+        body.append(draw())
+        if i % every == every - 1 and k < len(specials):
+            body.append(specials[order[k]](k))
+            k += 1
+    body.extend(specials[order[j]](j) for j in range(k, len(specials)))
+    return (
+        f"<svg xmlns='http://www.w3.org/2000/svg' width='{size}' height='{size}'"
+        f" viewBox='0 0 {size} {size}'><defs>{''.join(defs)}</defs>"
+        + "".join(body) + "</svg>"
+    )
+
+
 # ----------------------------------------------------------------------------
 # helpers
 # ----------------------------------------------------------------------------
@@ -199,9 +324,10 @@ def _time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _lower(doc_path: str, width, tile: int):
+def _lower(doc_path: str, width, tile: int, passes: bool = False):
     """Parse and lower a document as the CLI does; returns
-    (viewport, lowered, {layer: seconds})."""
+    (viewport, lowered, {layer: seconds}).  passes: whether the document
+    must lower to isolation passes (else to a single pass)."""
     from svgrasterize_tpu_torch.core.transform import Transform
     from svgrasterize_tpu_torch.frontend.svg import scene_from_filepath
     from svgrasterize_tpu_torch.render_plan import lower_scene
@@ -218,9 +344,51 @@ def _lower(doc_path: str, width, tile: int):
     lowered = lower_scene(scene, Transform().matrix(0, 1, 0, 1, 0, 0), viewport,
                           False, tile)
     seconds["lower"] = time.monotonic() - t0
-    if lowered is None or lowered.groups:
-        raise RuntimeError("the generated document must lower to a single pass")
+    if lowered is None or bool(lowered.groups) != passes:
+        raise RuntimeError(f"the generated document must lower {'with' if passes else 'without'}"
+                           " isolation passes")
     return viewport, lowered, seconds
+
+
+def _launches() -> dict:
+    from svgrasterize_tpu_torch.ops import fused_exec
+
+    return {k.__name__: k.launches for k in fused_exec.KERNELS}
+
+
+def _random_chunk(torch, rng, t: int, dev):
+    """A random blur chunk on the card: B parts over random spans, LUTs
+    with empty (-1) tiles, gaussian band operators with crop and
+    placement offsets, SourceAlpha members; plus the canvas rows it reads."""
+    from svgrasterize_tpu_torch.ops import filter_batch
+
+    B = int(rng.integers(2, 6))
+    nsi, nsj = (int(v) for v in rng.integers(1, 4, 2))
+    noi, noj = nsi + int(rng.integers(0, 2)), nsj + int(rng.integers(0, 2))
+    rows = 24
+    alpha = rng.uniform(0, 1, (rows, t, t, 1))
+    alpha[rng.random(alpha.shape) < 0.2] = 0.0
+    canvas = np.concatenate([rng.uniform(0, 1, (rows, t, t, 3)) * alpha, alpha], -1)
+
+    def taps(k):
+        u = np.exp(-np.square(np.arange(k) - k // 2) / (2 * (k / 5) ** 2))
+        return u / u.sum()
+
+    u, v = taps(int(rng.integers(3, 20)) | 1), taps(int(rng.integers(3, 20)) | 1)
+    ck = {
+        "B": B, "NSi": nsi, "NSj": nsj, "NOi": noi, "NOj": noj,
+        "chain_linear": bool(rng.integers(0, 2)),
+        "lut": rng.integers(-1, rows, (B, nsi * nsj)).astype(np.int32),
+        "bh": np.stack([filter_batch._band(u, nsi * t - 3, 2, -(len(u) // 2), noi * t, nsi * t)
+                        for _ in range(B)]),
+        "bw": np.stack([filter_batch._band(v, nsj * t - 5, 1, -(len(v) // 2), noj * t, nsj * t)
+                        for _ in range(B)]),
+        "src_alpha": rng.random(B) < 0.4,
+        "out_idx": np.arange(B * noi * noj, dtype=np.int32),
+        "pool_idx": list(range(B * noi * noj)),
+    }
+    return (torch.from_numpy(canvas.astype(np.float32)).to(dev),
+            filter_batch.upload_chunk(ck, dev))
 
 
 def _png_pixels(tiles, lowered, viewport) -> np.ndarray:
@@ -263,6 +431,52 @@ def _layer_breakdown(torch, doc: str, dev) -> str:
     return f"{vp[3]}x{vp[2]} T=32: {parts}"
 
 
+def _pass_breakdown(torch, prog, pool, viewport) -> str:
+    """ms per frame of an uploaded pass program through the kernels, and of
+    its stages by kind: the levels' scene programs, the per-part filter
+    chains (PyTorch ops), the blur chunks, the level pool writes and the
+    main stream.  CUDA events around the calls, so a stage whose host
+    dispatch is slower than the card is timed by its dispatch.  pool holds
+    every level's rows (a run_program with it came first)."""
+    from svgrasterize_tpu_torch.ops import fused_exec
+    from svgrasterize_tpu_torch.render_plan import _apply_part_filter, run_program
+
+    t, grid_w, origin = prog.tile, prog.grid[1], viewport[:2]
+    levels = prog.levels
+
+    def scenes():
+        return [fused_exec.execute_items_fused(lv.plan, pool if lv.needs_pool else None)
+                for lv in levels]
+
+    canvases = scenes()
+
+    def filters():
+        for lv, canvas in zip(levels, canvases):
+            for part, _src, _dst in lv.filters:
+                _apply_part_filter(canvas, part, grid_w, origin, False, t)
+
+    def chunks():
+        for lv, canvas in zip(levels, canvases):
+            for ck in lv.chunks:
+                fused_exec.blur_chunk(canvas, ck, t, False)
+
+    def writes():
+        for lv, canvas in zip(levels, canvases):
+            if lv.copy_rows is not None:
+                fused_exec.pool_rows(pool, canvas, *lv.copy_rows)
+
+    stages = {
+        "program": lambda: run_program(prog, origin, False, pool=pool),
+        "level scenes": scenes,
+        "filter chains": filters,
+        "blur chunks": chunks,
+        "plain-pass pool writes": writes,
+        "main stream": lambda: fused_exec.execute_items_fused(prog.main, pool),
+    }
+    ms = {name: _time_ms(torch, fn, 10) for name, fn in stages.items()}
+    return "ms/frame " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+
+
 # ----------------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------------
@@ -274,8 +488,14 @@ def main() -> int:
         return 1
     from svgrasterize_tpu_torch import cli
     from svgrasterize_tpu_torch.core.png import read_png
-    from svgrasterize_tpu_torch.ops import batch_exec, cuda_lib, fused_exec
-    from svgrasterize_tpu_torch.render_plan import compile_scene, plan_from_lowered
+    from svgrasterize_tpu_torch.ops import batch_exec, cuda_lib, filter_batch, fused_exec
+    from svgrasterize_tpu_torch.render_plan import (
+        compile_scene,
+        new_pool,
+        plan_from_lowered,
+        run_program,
+        upload_program,
+    )
 
     dev = torch.device("cuda", 0)
     # the plain versions' reductions and products stay in full f32
@@ -366,14 +586,16 @@ def main() -> int:
         plain_png = _png_pixels(batch_exec.execute_items(plan), low_cli, vp_cli)
         _say("layers", _layer_breakdown(torch, doc, dev))
 
-        # the main path: CLI render, then serving; counters from 0
-        fused_exec.reset_launch_counts()
+        # the main paths; each one's counters set to 0 just before it
+        path_launches = {}
 
-        # 5. CLI
+        # 5. CLI, pass-free document
+        fused_exec.reset_launch_counts()
         out_png = os.path.join(tmp, "out.png")
         t0 = time.monotonic()
         rc = cli.main([doc, out_png])
         cli_s = time.monotonic() - t0
+        path_launches["cli"] = _launches()
         if rc != 0:
             raise RuntimeError(f"CLI exited {rc}")
         with open(out_png, "rb") as f:
@@ -385,14 +607,13 @@ def main() -> int:
         diff = np.abs(img.astype(np.int16) - plain_png.astype(np.int16))
         if int(diff.max()) > PNG_TOL:
             raise RuntimeError(f"CLI PNG differs from the plain render by {diff.max()}/255")
-        cli_counts = (fused_exec.prepass_winding.launches, fused_exec.scene_tiles.launches)
-        if min(cli_counts) == 0:
+        cli_counts = path_launches["cli"]
+        if min(cli_counts["prepass_winding"], cli_counts["scene_tiles"]) == 0:
             raise RuntimeError(f"CLI did not launch both kernels: {cli_counts}")
         _say("cli", (
             f"{CLI_SIZE}x{CLI_SIZE} PNG in {cli_s:.3f}s (parse + lower + render +"
             f" encode); max diff vs plain {int(diff.max())}/255,"
-            f" {float((diff == 0).mean()) * 100:.4f}% bytes equal; launches"
-            f" prepass {cli_counts[0]}, scene {cli_counts[1]}"
+            f" {float((diff == 0).mean()) * 100:.4f}% bytes equal; launches {cli_counts}"
         ))
 
         # 6. serving at 3840^2, T=64
@@ -410,21 +631,19 @@ def main() -> int:
         compile_s = time.monotonic() - t0
         if cs is None:
             raise RuntimeError("serving scene did not lower")
+        fused_exec.reset_launch_counts()
         first = cs.render_tiles()
         torch.cuda.synchronize()
         frame_ms = _time_ms(torch, cs.render_tiles, SERVE_FRAMES)
         last = cs.render_tiles()
         torch.cuda.synchronize()
-        launches = {
-            "prepass_winding": fused_exec.prepass_winding.launches,
-            "scene_tiles": fused_exec.scene_tiles.launches,
-        }
+        path_launches["serve"] = _launches()
         if not torch.equal(first, last):
             raise RuntimeError("serving frames differ")
-        if min(launches.values()) == 0:
-            raise RuntimeError(f"main path missed a kernel: {launches}")
-        plain_frame_ms = _time_ms(torch, lambda: batch_exec.execute_items(cs.plan), 2)
-        plain_last = batch_exec.execute_items(cs.plan)
+        if min(path_launches["serve"]["prepass_winding"], path_launches["serve"]["scene_tiles"]) == 0:
+            raise RuntimeError(f"serving missed a kernel: {path_launches['serve']}")
+        plain_frame_ms = _time_ms(torch, lambda: cs.render_tiles(plain=True), 2)
+        plain_last = cs.render_tiles(plain=True)
         serve_err = float((last - plain_last).abs().max())
         if not serve_err <= SCENE_TOL:
             raise RuntimeError(f"serving kernels disagree with plain: {serve_err}")
@@ -434,19 +653,199 @@ def main() -> int:
             f" {compile_s:.2f}s; kernels {frame_ms:.3f} ms/frame"
             f" ({mpx / frame_ms * 1e3:.1f} Mpx/s), plain {plain_frame_ms:.3f}"
             f" ms/frame ({mpx / plain_frame_ms * 1e3:.1f} Mpx/s); max abs diff"
-            f" {serve_err:.3g}; last frame == first"
+            f" {serve_err:.3g}; last frame == first; launches {path_launches['serve']}"
         ))
 
+        # 7. the isolation-pass document: plan, kernels against plain, CLI
+        pdoc = os.path.join(tmp, "passes.svg")
+        with open(pdoc, "w", encoding="utf-8") as f:
+            f.write(pass_doc(PASS_DRAWS, CLI_SIZE, seed=0))
+        vp_p, low_p, seconds_p = _lower(pdoc, None, 32, passes=True)
+        prog = upload_program(low_p, dev)
+        chunks = [ck for level in prog.levels for ck in level.chunks]
+        n_filters = sum(len(level.filters) for level in prog.levels)
+        _say("plan", (
+            f"passes {CLI_SIZE}^2 T=32: {len(prog.levels)} levels, rows"
+            f" {[lv.plan.num_tiles for lv in prog.levels]}, pool {prog.pool_rows},"
+            f" {len(chunks)} blur chunks of {sum(ck['B'] for ck in chunks)} parts,"
+            f" {n_filters} per-part filter chains; lowered in {seconds_p['lower']:.2f}s"
+        ))
+        if len(prog.levels) < 2 or not chunks or not n_filters:
+            raise RuntimeError("the pass document misses a construct")
+        plain_tiles = run_program(prog, vp_p[:2], False, plain=True)
+        got_tiles = run_program(prog, vp_p[:2], False)
+        torch.cuda.synchronize()
+        pass_err = float((got_tiles - plain_tiles).abs().max())
+        if not bool(torch.isfinite(got_tiles).all()) or not pass_err <= SCENE_TOL:
+            raise RuntimeError(f"pass program disagrees with plain: {pass_err}")
+        pass_plain_png = _png_pixels(plain_tiles, low_p, vp_p)
+
+        # scene kernel on the main stream with pass items (tex / mask) and
+        # the pool the levels leave
+        pool = new_pool(prog)
+        run_program(prog, vp_p[:2], False, pool=pool)
+        mplan = prog.main
+        big = fused_exec.prepass_winding(mplan.bigs, mplan.tile)
+        got = fused_exec.scene_tiles(mplan, big, pool)
+        ref = batch_exec._scene_tiles(mplan, big, pool)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not err <= SCENE_TOL:
+            raise RuntimeError(f"scene kernel disagrees on pass items: {err}")
+        ms = _time_ms(torch, lambda: fused_exec.scene_tiles(mplan, big, pool), 20)
+        plain_ms = _time_ms(torch, lambda: batch_exec._scene_tiles(mplan, big, pool), 3)
+        results["scene_tiles"]["max_abs_err"] = max(results["scene_tiles"]["max_abs_err"], err)
+        n_pass_items = int(((mplan.iparams[:, batch_exec.I_TEX] >= 0)
+                            | (mplan.iparams[:, batch_exec.I_MASK] >= 0)).sum())
+        _say("scene", (
+            f"passes main stream ({n_pass_items} tex/mask items): max abs diff {err:.3g};"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        ))
+        _say("pass_layers", _pass_breakdown(torch, prog, pool, vp_p))
+
+        # 8. blur chunk kernel against plain: the document's chunks, then
+        # random chunks at T=32 and 64
+        level0 = prog.levels[0]
+        canvas0 = fused_exec.execute_items_fused(level0.plan, None)
+        worst = 0.0
+        for ck in level0.chunks:
+            got = fused_exec.blur_chunk(canvas0, ck, 32, False)
+            ref = filter_batch.apply_chunk(canvas0, ck, 32, False)
+            torch.cuda.synchronize()
+            worst = max(worst, float((got - ref).abs().max()))
+        doc_err = worst
+        rng = np.random.default_rng(2)
+        for t in (32, 64):
+            for _ in range(4):
+                rows_t, ck = _random_chunk(torch, rng, t, dev)
+                for lin in (False, True):
+                    got = fused_exec.blur_chunk(rows_t, ck, t, lin)
+                    ref = filter_batch.apply_chunk(rows_t, ck, t, lin)
+                    torch.cuda.synchronize()
+                    worst = max(worst, float((got - ref).abs().max()))
+        if not worst <= BLUR_TOL:
+            raise RuntimeError(f"blur chunk kernel disagrees: {worst} > {BLUR_TOL}")
+        lvl_chunks = level0.chunks
+
+        def all_chunks(fn):
+            for ck in lvl_chunks:
+                fn(canvas0, ck, 32, False)
+
+        ms = _time_ms(torch, lambda: all_chunks(fused_exec.blur_chunk), 20)
+        plain_ms = _time_ms(torch, lambda: all_chunks(filter_batch.apply_chunk), 5)
+        results["blur_chunk"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+        _say("blur_chunk", (
+            f"document chunks: max abs diff {doc_err:.3g}; random chunks T=32,64:"
+            f" worst {worst:.3g}; level 0's {len(lvl_chunks)} chunks"
+            f" ({sum(ck['B'] for ck in lvl_chunks)} parts): kernel {ms:.4f} ms,"
+            f" plain {plain_ms:.4f} ms"
+        ))
+
+        # 9. pool row writer against plain: exact
+        src_all = torch.cat([canvas0, canvas0.flip(0)])
+        n_rows = src_all.shape[0]
+        g = torch.Generator().manual_seed(3)
+        src_idx = torch.randperm(n_rows, generator=g)[: prog.pool_rows].to(torch.int32)
+        dst_idx = torch.randperm(prog.pool_rows, generator=g)[: src_idx.shape[0]].to(torch.int32)
+        src_idx, dst_idx = src_idx[: dst_idx.shape[0]].to(dev), dst_idx.to(dev)
+        pool_k, pool_p = new_pool(prog), new_pool(prog)
+        fused_exec.pool_rows(pool_k, src_all, src_idx, dst_idx)
+        batch_exec._pool_rows(pool_p, src_all, src_idx, dst_idx)
+        torch.cuda.synchronize()
+        if not torch.equal(pool_k, pool_p):
+            raise RuntimeError("pool row kernel differs from plain")
+        ms = _time_ms(torch, lambda: fused_exec.pool_rows(pool_k, src_all, src_idx, dst_idx), 50)
+        plain_ms = _time_ms(torch, lambda: batch_exec._pool_rows(pool_p, src_all, src_idx, dst_idx), 50)
+        results["pool_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+        _say("pool_rows", (
+            f"{dst_idx.shape[0]} rows of T=32 into a {prog.pool_rows}-row pool: equal;"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        ))
+
+        # 10. CLI, isolation-pass document (a main path)
+        fused_exec.reset_launch_counts()
+        out_png = os.path.join(tmp, "passes.png")
+        t0 = time.monotonic()
+        rc = cli.main([pdoc, out_png])
+        pcli_s = time.monotonic() - t0
+        path_launches["passes"] = _launches()
+        if rc != 0:
+            raise RuntimeError(f"CLI exited {rc} on the pass document")
+        with open(out_png, "rb") as f:
+            img = read_png(f.read())
+        if img.shape != (CLI_SIZE, CLI_SIZE, 4) or int(img[..., 3].max()) == 0:
+            raise RuntimeError(f"pass document CLI image {img.shape} is wrong or blank")
+        diff = np.abs(img.astype(np.int16) - pass_plain_png.astype(np.int16))
+        if int(diff.max()) > PNG_TOL:
+            raise RuntimeError(f"pass CLI PNG differs from the plain render by {diff.max()}/255")
+        missed = [k for k in ("scene_tiles", "blur_chunk", "pool_rows")
+                  if path_launches["passes"][k] == 0]
+        if missed:
+            raise RuntimeError(f"pass CLI did not launch {missed}: {path_launches['passes']}")
+        _say("passes", (
+            f"{CLI_SIZE}x{CLI_SIZE} PNG in {pcli_s:.3f}s; max diff vs plain"
+            f" {int(diff.max())}/255, {float((diff == 0).mean()) * 100:.4f}% bytes equal;"
+            f" pass program vs plain max abs diff {pass_err:.3g}; launches"
+            f" {path_launches['passes']}"
+        ))
+
+        # 11. serving the stress document (a main path)
+        from svgrasterize_tpu_torch.frontend.svg import scene_from_str
+        from svgrasterize_tpu_torch.utils.stress import stress_doc
+
+        scene, _ids, (w, h) = scene_from_str(stress_doc(STRESS_DRAWS, STRESS_SIZE))
+        vp = (0, 0, int(h), int(w))
+        t0 = time.monotonic()
+        cs = compile_scene(scene, Transform().matrix(0, 1, 0, 1, 0, 0), vp,
+                           tile=32, device=dev)
+        compile_s = time.monotonic() - t0
+        if cs is None or not cs.program.levels:
+            raise RuntimeError("the stress document must lower with isolation passes")
+        fused_exec.reset_launch_counts()
+        first = cs.render_tiles()
+        torch.cuda.synchronize()
+        frame_ms = _time_ms(torch, cs.render_tiles, SERVE_FRAMES)
+        last = cs.render_tiles()
+        torch.cuda.synchronize()
+        path_launches["serve_passes"] = _launches()
+        if not torch.equal(first, last):
+            raise RuntimeError("stress serving frames differ")
+        missed = [k for k in ("scene_tiles", "pool_rows")
+                  if path_launches["serve_passes"][k] == 0]
+        if missed:
+            raise RuntimeError(f"stress serving did not launch {missed}")
+        plain_frame_ms = _time_ms(torch, lambda: cs.render_tiles(plain=True), 2)
+        plain_last = cs.render_tiles(plain=True)
+        stress_err = float((last - plain_last).abs().max())
+        if not stress_err <= SCENE_TOL:
+            raise RuntimeError(f"stress serving disagrees with plain: {stress_err}")
+        mpx = w * h / 1e6
+        _say("serve_passes", (
+            f"stress_doc({STRESS_DRAWS}, {STRESS_SIZE}) T=32: {len(cs.program.levels)}"
+            f" levels, pool {cs.program.pool_rows} rows, {cs.plan.tile_id.shape[0]} main"
+            f" items, compiled in {compile_s:.2f}s; kernels {frame_ms:.3f} ms/frame"
+            f" ({mpx / frame_ms * 1e3:.1f} Mpx/s), plain {plain_frame_ms:.3f} ms/frame;"
+            f" max abs diff {stress_err:.3g}; last frame == first; launches"
+            f" {path_launches['serve_passes']}"
+        ))
+
+    launches = {
+        k: sum(counts[k] for counts in path_launches.values())
+        for k in ("prepass_winding", "scene_tiles", "blur_chunk", "pool_rows")
+    }
+    sources = {
+        "prepass_winding": ("prepass.cu", "svgrasterize_tpu/ops/fused_exec.py:443"),
+        "scene_tiles": ("scene.cu", "svgrasterize_tpu/ops/fused_exec.py:853"),
+        "blur_chunk": ("blur_chunk.cu", "svgrasterize_tpu/ops/filter_batch.py:396"),
+        "pool_rows": ("pool_rows.cu", "svgrasterize_tpu/render_plan.py:2092"),
+    }
     kernels = [
-        dict(name="prepass_winding", route="cuda",
-             source="svgrasterize_tpu_torch/csrc/prepass.cu",
-             replaces="svgrasterize_tpu/ops/fused_exec.py:443",
-             launches=launches["prepass_winding"], **results["prepass_winding"]),
-        dict(name="scene_tiles", route="cuda",
-             source="svgrasterize_tpu_torch/csrc/scene.cu",
-             replaces="svgrasterize_tpu/ops/fused_exec.py:853",
-             launches=launches["scene_tiles"], **results["scene_tiles"]),
+        dict(name=name, route="cuda", source=f"svgrasterize_tpu_torch/csrc/{src}",
+             replaces=replaces, launches=launches[name], **results[name])
+        for name, (src, replaces) in sources.items()
     ]
+    if min(k["launches"] for k in kernels) == 0:
+        raise RuntimeError(f"a kernel was never launched on a main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

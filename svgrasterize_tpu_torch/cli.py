@@ -3,9 +3,10 @@
 Flag-compatible with the JAX package's CLI (positional svg/output, -bg/-fg
 colors, -w width, -id element, -t extra transform, --linear-rgb, --fonts,
 --as-path, --profile); its --platform becomes --device (default cuda).
-Renders go through the batched single-pass path (render_plan.render_fast);
-a document that needs anything else raises NotImplementedError naming the
-ROADMAP item.
+Renders go through the batched path (render_plan.render_fast), isolation
+passes (group opacity, masks, clips, filters) included; a document that
+needs the interpreter (pattern paints, raster images, feImage, no document
+size) raises NotImplementedError naming ROADMAP queue 1 item 7.
 """
 
 from __future__ import annotations

@@ -17,6 +17,8 @@
 #define SVGR_I_BIG 3
 #define SVGR_I_CLIP 4
 #define SVGR_I_FIELD 5
+#define SVGR_I_TEX 6
+#define SVGR_I_MASK 7
 
 #define SVGR_N_FPARAMS 24
 #define SVGR_F_OPACITY 0
@@ -55,8 +57,9 @@ int svgr_prepass_winding(const float* edges, float* out, int rows, int width,
 //   lines (n, segs, 4), carry (n, tile), tile_id (n,) sorted with padding
 //   items at num_tiles, iparams (n, SVGR_N_IPARAMS), fparams
 //   (n, SVGR_N_FPARAMS), stop_off (n, k_stops), stop_col (n, k_stops, 4);
-//   big_wind (B, tile, tile), clips (U, tile, tile) and field
-//   (F, tile, tile, 4) may be null when no item references them.
+//   big_wind (B, tile, tile), clips (U, tile, tile), field
+//   (F, tile, tile, 4) and pool (P, tile, tile, 4) may be null when no item
+//   references them (pool rows are read by texture and mask items).
 //   out: (num_tiles, tile, tile, 4) f32; tiles without items are zero.
 // tile is 16, 32 or 64; segs <= SVGR_MAX_SEGS; k_stops <= SVGR_MAX_STOPS.
 int svgr_scene_tiles(const float* lines, int segs, const float* carry,
@@ -64,8 +67,28 @@ int svgr_scene_tiles(const float* lines, int segs, const float* carry,
                      const float* fparams, const float* stop_off,
                      const float* stop_col, int k_stops,
                      const float* big_wind, const float* clips,
-                     const float* field, float* out, int num_tiles, int tile,
-                     cudaStream_t stream);
+                     const float* field, const float* pool, float* out,
+                     int num_tiles, int tile, cudaStream_t stream);
+
+// Every out-span tile of a chunk of lone separable-blur filter parts.
+//   canvas (rows, tile, tile, 4) f32 premultiplied pass rows;
+//   lut (B, nsi * nsj) int32 canvas row of each span tile, -1 = zeros;
+//   bh (B, noi * tile, nsi * tile), bw (B, noj * tile, nsj * tile) f32
+//   band operators; src_alpha (B,) int32, 1 = the part blurs SourceAlpha;
+//   gamma_in / gamma_out: 0 none, 1 sRGB -> linear, 2 linear -> sRGB.
+//   out: (B * noi * noj, tile, tile, 4) f32 premultiplied.
+// tile is 16, 32 or 64.
+int svgr_blur_chunk(const float* canvas, int rows, const int* lut,
+                    const float* bh, const float* bw, const int* src_alpha,
+                    int parts, int nsi, int nsj, int noi, int noj,
+                    int gamma_in, int gamma_out, float* out, int tile,
+                    cudaStream_t stream);
+
+// pool[dst_idx[i]] = src[src_idx[i]] for i < n, rows of tile * tile * 4 f32,
+// in place; indices outside [0, pool_rows) / [0, src_rows) are skipped.
+int svgr_pool_rows(float* pool, int pool_rows, const float* src, int src_rows,
+                   const int* src_idx, const int* dst_idx, int n, int tile,
+                   cudaStream_t stream);
 
 #ifdef __cplusplus
 }

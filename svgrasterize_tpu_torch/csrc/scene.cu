@@ -1,5 +1,5 @@
-// Scene kernel: every canvas tile of a single-pass plan, composed in z
-// order from its work items.
+// Scene kernel: every canvas tile of an item stream (the main stream or an
+// isolation-pass group's), composed in z order from its work items.
 //
 // Replaces the JAX package's main TPU kernel in
 // svgrasterize_tpu/ops/fused_exec.py: _kernel_factory_kvec (the default),
@@ -12,7 +12,9 @@
 // execute_items), item by item:
 //   winding = inline edges (or the item's big-class prepass row) + carry;
 //   coverage by fill rule; x clip field; zeroed below 1e-6; x opacity;
-//   paint (solid, linear, radial, collapsed-run field);
+//   x the luminance of a pool row (mask items, mask_idx >= 0);
+//   paint (solid, linear, radial; a pool row for texture items,
+//   tex_idx >= 0; a collapsed-run field overrides last);
 //   acc = rgba + acc * (1 - rgba.a).
 // The 1e-6 floor comes before the opacity, as in batch_exec.py; the TPU
 // kernel applies it after.
@@ -20,7 +22,8 @@
 // What bounds it on the H100: arithmetic in the inline winding (up to 64
 // edges x T^2 pixels per item, ~25 FP32 operations per pair) and in the
 // gradient paints; per item it reads under 2 KB of parameters and at most
-// one T x T field per stack, and writes each tile once.
+// one T x T field per stack (two pool rows for a masked texture item), and
+// writes each tile once.
 //
 // Design: one block per canvas tile, so tile runs are independent and no
 // block synchronises with another.  Thread 0 and 1 find the tile's item run
@@ -131,7 +134,8 @@ scene_kernel(const float4* __restrict__ lines, int segs,
              const float4* __restrict__ stop_col, int k_stops,
              const float* __restrict__ big_wind,
              const float* __restrict__ clips,
-             const float4* __restrict__ field, float4* __restrict__ out) {
+             const float4* __restrict__ field,
+             const float4* __restrict__ pool, float4* __restrict__ out) {
   constexpr int kPx = T * T / kThreads;
   __shared__ EdgeParams s_edges[SVGR_MAX_SEGS];
   __shared__ float s_off[SVGR_MAX_STOPS];
@@ -170,6 +174,8 @@ scene_kernel(const float4* __restrict__ lines, int segs,
     const int big_idx = s_ip[SVGR_I_BIG];
     const int clip_idx = s_ip[SVGR_I_CLIP];
     const int field_idx = s_ip[SVGR_I_FIELD];
+    const int tex_idx = s_ip[SVGR_I_TEX];
+    const int mask_idx = s_ip[SVGR_I_MASK];
     const float opacity = s_fp[SVGR_F_OPACITY];
     const float4 color = make_float4(
         s_fp[SVGR_F_COLOR], s_fp[SVGR_F_COLOR + 1], s_fp[SVGR_F_COLOR + 2],
@@ -181,6 +187,10 @@ scene_kernel(const float4* __restrict__ lines, int segs,
                             ? clips + (size_t)clip_idx * T * T : nullptr;
     const float4* fld = (field != nullptr && field_idx >= 0)
                             ? field + (size_t)field_idx * T * T : nullptr;
+    const float4* tex = (pool != nullptr && tex_idx >= 0)
+                            ? pool + (size_t)tex_idx * T * T : nullptr;
+    const float4* msk = (pool != nullptr && mask_idx >= 0)
+                            ? pool + (size_t)mask_idx * T * T : nullptr;
 
 #pragma unroll
     for (int i = 0; i < kPx; ++i) {
@@ -204,10 +214,16 @@ scene_kernel(const float4* __restrict__ lines, int segs,
       if (clip != nullptr) cov = cov * clip[px];
       float mask = cov < 1e-6f ? 0.f : cov;
       mask = mask * opacity;
+      if (msk != nullptr) {
+        const float4 m = msk[px];
+        mask = mask * (m.x * 0.2125f + m.y * 0.7154f + m.z * 0.072f);
+      }
 
       float4 paint;
       if (fld != nullptr) {
         paint = fld[px];
+      } else if (tex != nullptr) {
+        paint = tex[px];
       } else if (kind == SVGR_PAINT_SOLID) {
         paint = color;
       } else {
@@ -235,13 +251,13 @@ cudaError_t launch(const float* lines, int segs, const float* carry,
                    const int* tile_id, int n_items, const int* iparams,
                    const float* fparams, const float* stop_off,
                    const float* stop_col, int k_stops, const float* big_wind,
-                   const float* clips, const float* field, float* out,
-                   int num_tiles, cudaStream_t stream) {
+                   const float* clips, const float* field, const float* pool,
+                   float* out, int num_tiles, cudaStream_t stream) {
   scene_kernel<T><<<num_tiles, kThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(lines), segs, carry, tile_id, n_items,
       iparams, fparams, stop_off, reinterpret_cast<const float4*>(stop_col),
       k_stops, big_wind, clips, reinterpret_cast<const float4*>(field),
-      reinterpret_cast<float4*>(out));
+      reinterpret_cast<const float4*>(pool), reinterpret_cast<float4*>(out));
   return cudaGetLastError();
 }
 
@@ -253,8 +269,9 @@ extern "C" int svgr_scene_tiles(const float* lines, int segs,
                                 const float* fparams, const float* stop_off,
                                 const float* stop_col, int k_stops,
                                 const float* big_wind, const float* clips,
-                                const float* field, float* out, int num_tiles,
-                                int tile, cudaStream_t stream) {
+                                const float* field, const float* pool,
+                                float* out, int num_tiles, int tile,
+                                cudaStream_t stream) {
   if (num_tiles <= 0) return 0;
   if (segs < 0 || segs > SVGR_MAX_SEGS || k_stops < 1 ||
       k_stops > SVGR_MAX_STOPS) {
@@ -264,15 +281,15 @@ extern "C" int svgr_scene_tiles(const float* lines, int segs,
     case 16:
       return (int)launch<16>(lines, segs, carry, tile_id, n_items, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
-                             clips, field, out, num_tiles, stream);
+                             clips, field, pool, out, num_tiles, stream);
     case 32:
       return (int)launch<32>(lines, segs, carry, tile_id, n_items, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
-                             clips, field, out, num_tiles, stream);
+                             clips, field, pool, out, num_tiles, stream);
     case 64:
       return (int)launch<64>(lines, segs, carry, tile_id, n_items, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
-                             clips, field, out, num_tiles, stream);
+                             clips, field, pool, out, num_tiles, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -9,12 +9,15 @@ The host lowers a scene into a flat, (tile, z)-sorted list of work items
        (items, edges, T, T) in chunks; big segment classes run in a
        pre-pass (_prepass_winding) and replace the inline winding
     2. carry, fill rule, clip field, the 1e-6 floor, opacity
-    3. paint (solid, linear, radial, collapsed-run field)
-    4. per-tile premultiplied OVER in z order: each item's rank within its
+    3. the mask luminance of an isolation pass's pool row (mask items)
+    4. paint (solid, linear, radial, a pool row of an isolation pass for
+       texture items, collapsed-run field)
+    5. per-tile premultiplied OVER in z order: each item's rank within its
        tile run is computed, then ranks 0..max each compose all their items
        into their (distinct) tiles with one index_put_
 
-ops/fused_exec.py wraps both CUDA kernels; its wrappers call the functions
+It also holds the plain version of the pool row writer (_pool_rows).
+ops/fused_exec.py wraps the CUDA kernels; its wrappers call the functions
 here for tensors on the CPU.  Every function takes tensors on one device and
 returns tensors on that device.
 """
@@ -40,7 +43,7 @@ CHUNK_BIG = 32  # lowering pads big-class row counts to multiples of this
 
 # Packed per-item parameter columns (plan_from_lowered writes them; the
 # CUDA kernel reads the same columns, see csrc/kernels.h).
-I_KIND, I_RULE, I_SPREAD, I_BIG, I_CLIP, I_FIELD = range(6)
+I_KIND, I_RULE, I_SPREAD, I_BIG, I_CLIP, I_FIELD, I_TEX, I_MASK = range(8)
 N_IPARAMS = 8
 (F_OPACITY, F_TILE_R, F_TILE_C,
  F_COLOR) = range(4)                       # color: 4 columns
@@ -52,12 +55,20 @@ N_FPARAMS = 24
 # elements per (items, edges, T, T) temporary of the plain winding
 _WIND_BUDGET = 1 << 22
 
+# SVG mask value = luminance x alpha; on premultiplied pixels that is the
+# luminance weights dotted with the premultiplied rgb (f32, as the JAX
+# package's batch_exec._MASK_LUM and csrc/scene.cu)
+MASK_LUM = (0.2125, 0.7154, 0.072)
+
 
 class DevicePlan(NamedTuple):
-    """A lowered single-pass plan as tensors on one device.
+    """A lowered item stream (the main stream or a pass group's) as tensors
+    on one device.
 
     Per-item arrays have leading dim N, sorted by (tile_id, z); padding
-    items carry tile_id == num_tiles.
+    items carry tile_id == num_tiles.  Texture and mask items (iparams
+    columns I_TEX, I_MASK >= 0) read rows of the isolation-pass pool that
+    the executors take as an argument.
     """
 
     tile: int
@@ -72,6 +83,7 @@ class DevicePlan(NamedTuple):
     bigs: tuple  # per width class (M_c, S_c, 4) f32 edge lists
     clips: torch.Tensor | None  # (U, T, T) f32 clip coverage fields
     field: torch.Tensor | None  # (F, T, T, 4) f32 collapsed-run paint fields
+    reads_pool: bool = False  # some item has tex_idx or mask_idx >= 0
 
     @property
     def num_tiles(self) -> int:
@@ -260,11 +272,16 @@ def _compose_runs(canvas, tile_id, rgba):
         canvas.index_put_((ids,), src + canvas[ids] * (1.0 - src[..., 3:]))
 
 
-def _scene_tiles(plan: DevicePlan, big_wind):
+def _scene_tiles(plan: DevicePlan, big_wind, pool=None):
     """Plain version of the scene kernel: the canvas (num_tiles, T, T, 4).
 
     big_wind is the prepass stack (or None when the plan has no big
-    classes); items with big_idx >= 0 take their winding from it.
+    classes); items with big_idx >= 0 take their winding from it.  pool
+    (P, T, T, 4) holds the isolation-pass rows that texture and mask items
+    read (None when the plan reads none).  The order of operations is the
+    JAX package's batch_exec._raster_item: coverage x clip, the 1e-6
+    floor, x opacity, x mask luminance, then the paint — a pool row for
+    texture items, overridden last by a collapsed-run field.
     """
     t = plan.tile
     num_tiles = plan.num_tiles
@@ -291,7 +308,17 @@ def _scene_tiles(plan: DevicePlan, big_wind):
                                       torch.ones_like(clip))
         mask = torch.where(mask < 1e-6, torch.zeros_like(mask), mask)
         mask = mask * fp[:, F_OPACITY, None, None]
+        if pool is not None:
+            midx = ip[:, I_MASK]
+            m = pool[torch.clamp(midx, min=0).long()]
+            lum = m[..., 0] * MASK_LUM[0] + m[..., 1] * MASK_LUM[1] + m[..., 2] * MASK_LUM[2]
+            mask = mask * torch.where((midx >= 0)[:, None, None], lum,
+                                      torch.ones_like(lum))
         paint = _paint(fp, ip, plan.stop_offsets[sl], plan.stop_colors[sl], t)
+        if pool is not None:
+            tidx = ip[:, I_TEX]
+            tex = pool[torch.clamp(tidx, min=0).long()]
+            paint = torch.where((tidx >= 0)[:, None, None, None], tex, paint)
         if plan.field is not None:
             fidx = ip[:, I_FIELD]
             field = plan.field[torch.clamp(fidx, min=0).long()]
@@ -300,9 +327,19 @@ def _scene_tiles(plan: DevicePlan, big_wind):
     return canvas[:num_tiles]
 
 
-def execute_items(plan: DevicePlan):
+def execute_items(plan: DevicePlan, pool=None):
     """Whole-plan execution in plain PyTorch: (num_tiles, T, T, 4) f32.
 
     Twin of the JAX package's batch_exec.execute_items.
     """
-    return _scene_tiles(plan, _prepass_winding(plan.bigs, plan.tile))
+    return _scene_tiles(plan, _prepass_winding(plan.bigs, plan.tile), pool)
+
+
+def _pool_rows(pool, src, src_idx, dst_idx):
+    """Plain version of the pool row writer: pool[dst_idx] = src[src_idx],
+    in place; returns pool.
+
+    pool (P, T, T, 4), src (R, T, T, 4); src_idx / dst_idx (n,) int32.
+    """
+    pool[dst_idx.long()] = src[src_idx.long()]
+    return pool

@@ -2,9 +2,11 @@
 
 The sources have a plain C interface (csrc/kernels.h), so nvcc compiles
 them in seconds into one shared library, which ctypes loads; no PyTorch
-header is compiled.  The library is built at first use into
-build/kernels-<hash>/ beside the package, keyed by a hash of the sources
-and the flags, so an edited source rebuilds and an unchanged one is reused.
+header is compiled.  One nvcc process compiles each source to an object
+file, all started together, and one more links them.  The library is built
+at first use into build/kernels-<hash>/ beside the package, keyed by a hash
+of the sources and the flags, so an edited source rebuilds and an unchanged
+one is reused.
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 # sm_90a: Hopper.  -fmad=false keeps every multiply and add separately
 # rounded, as in the plain PyTorch versions the kernels are held against
 # (see csrc/winding.cuh).
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
@@ -35,8 +38,13 @@ _SIGNATURES = {
     "svgr_prepass_winding": (_vp, _vp, _int, _int, _int, _vp),
     "svgr_scene_tiles": (
         _vp, _int, _vp, _vp, _int, _vp, _vp, _vp, _vp, _int,
-        _vp, _vp, _vp, _vp, _int, _int, _vp,
+        _vp, _vp, _vp, _vp, _vp, _int, _int, _vp,
     ),
+    "svgr_blur_chunk": (
+        _vp, _int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
+        _int, _int, _vp, _int, _vp,
+    ),
+    "svgr_pool_rows": (_vp, _int, _vp, _int, _vp, _vp, _int, _int, _vp),
 }
 
 
@@ -58,7 +66,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
@@ -75,17 +83,33 @@ def build() -> tuple[Path, float]:
     if so.exists():
         return so, 0.0
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     start = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.monotonic() - start
-    (so.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+    objects, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = so.parent / f"{src.stem}.{tag}.o"
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        tmp = so.with_suffix(f".{tag}")
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objects)],
+            capture_output=True, text=True, check=False,
         )
+        logs.append(link.stdout + link.stderr)
+        failed = [link.returncode] if link.returncode != 0 else []
+    seconds = time.monotonic() - start
+    (so.parent / "nvcc.log").write_text("".join(logs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{''.join(logs)[-4000:]}")
     os.replace(tmp, so)
     return so, seconds
 

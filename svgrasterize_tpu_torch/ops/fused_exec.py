@@ -1,22 +1,23 @@
-"""Wrappers of the hand-written CUDA kernels (csrc/prepass.cu, csrc/scene.cu).
+"""Wrappers of the hand-written CUDA kernels (csrc/prepass.cu, csrc/scene.cu,
+csrc/blur_chunk.cu, csrc/pool_rows.cu).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches its kernel on PyTorch's current stream through the ctypes
 library (ops/cuda_lib.py) and raises if the launch returns a CUDA error.
-Tensors on the CPU go to the kernel's plain PyTorch version in
-ops/batch_exec.py instead; that is the only case that does.  A tensor on
-any other device raises.
+Tensors on the CPU go to the kernel's plain PyTorch version
+(ops/batch_exec.py, ops/filter_batch.apply_chunk) instead; that is the only
+case that does.  A tensor on any other device raises.
 
 Each wrapper counts its kernel launches in its `launches` attribute, so a
 run can show that its main path went through the kernels
-(reset_launch_counts sets both to 0).
+(reset_launch_counts sets them all to 0).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import batch_exec
+from . import batch_exec, filter_batch
 from .batch_exec import MAX_STOPS, N_FPARAMS, N_IPARAMS, SMALL_SEGS, DevicePlan
 
 # tile sizes the kernels are instantiated for (a template parameter)
@@ -95,14 +96,18 @@ def prepass_winding(arrays, t_size: int):
 prepass_winding.launches = 0
 
 
-def scene_tiles(plan: DevicePlan, big_wind):
+def scene_tiles(plan: DevicePlan, big_wind, pool=None):
     """Canvas tiles (num_tiles, T, T, 4) f32 premultiplied of a plan.
 
     big_wind: the prepass stack of plan.bigs, or None when it has none.
+    pool: the isolation-pass pool (P, T, T, 4) that texture and mask items
+    read; required when the plan reads it.
     """
     device = plan.lines.device
+    if plan.reads_pool and pool is None:
+        raise ValueError("scene_tiles: the plan reads the pass pool, none given")
     if not _kernel_device(device, "scene_tiles"):
-        return batch_exec._scene_tiles(plan, big_wind)
+        return batch_exec._scene_tiles(plan, big_wind, pool)
     t = plan.tile
     if t not in KERNEL_TILES:
         raise ValueError(f"scene_tiles: tile {t} not in {KERNEL_TILES}")
@@ -124,6 +129,8 @@ def scene_tiles(plan: DevicePlan, big_wind):
         _check(plan.clips, "clips", f32, (None, t, t), device)
     if plan.field is not None:
         _check(plan.field, "field", f32, (None, t, t, 4), device)
+    if pool is not None:
+        _check(pool, "pool", f32, (None, t, t, 4), device)
     from . import cuda_lib
 
     lib = cuda_lib.load()
@@ -134,8 +141,8 @@ def scene_tiles(plan: DevicePlan, big_wind):
         plan.tile_id.data_ptr(), n, plan.iparams.data_ptr(),
         plan.fparams.data_ptr(), plan.stop_offsets.data_ptr(),
         plan.stop_colors.data_ptr(), k_stops, _ptr(big_wind),
-        _ptr(plan.clips), _ptr(plan.field), out.data_ptr(), num_tiles, t,
-        _stream(device),
+        _ptr(plan.clips), _ptr(plan.field), _ptr(pool), out.data_ptr(),
+        num_tiles, t, _stream(device),
     )
     _raise_on(rc, "scene_tiles")
     scene_tiles.launches += 1
@@ -145,11 +152,92 @@ def scene_tiles(plan: DevicePlan, big_wind):
 scene_tiles.launches = 0
 
 
-def execute_items_fused(plan: DevicePlan):
+def execute_items_fused(plan: DevicePlan, pool=None):
     """Whole-plan execution: the prepass, then the scene tiles."""
-    return scene_tiles(plan, prepass_winding(plan.bigs, plan.tile))
+    return scene_tiles(plan, prepass_winding(plan.bigs, plan.tile), pool)
+
+
+_GAMMA_CODE = {None: 0, "to_linear": 1, "to_srgb": 2}
+
+
+def blur_chunk(canvas, ck: dict, t_size: int, linear_rgb: bool):
+    """Every out-span tile (B * NOi * NOj, T, T, 4) f32 of a blur chunk.
+
+    canvas: a level's pass rows (R, T, T, 4); ck: a chunk of
+    ops/filter_batch.build_chunks with its arrays on the canvas's device
+    (filter_batch.upload_chunk).  The level's pool update picks
+    ck["out_idx"] from the result.
+    """
+    device = canvas.device
+    if not _kernel_device(device, "blur_chunk"):
+        return filter_batch.apply_chunk(canvas, ck, t_size, linear_rgb)
+    t = t_size
+    if t not in KERNEL_TILES:
+        raise ValueError(f"blur_chunk: tile {t} not in {KERNEL_TILES}")
+    B, nsi, nsj, noi, noj = ck["B"], ck["NSi"], ck["NSj"], ck["NOi"], ck["NOj"]
+    f32, i32 = torch.float32, torch.int32
+    _check(canvas, "canvas", f32, (None, t, t, 4), device)
+    _check(ck["lut"], "lut", i32, (B, nsi * nsj), device)
+    _check(ck["bh"], "bh", f32, (B, noi * t, nsi * t), device)
+    _check(ck["bw"], "bw", f32, (B, noj * t, nsj * t), device)
+    _check(ck["src_alpha"], "src_alpha", i32, (B,), device)
+    gamma_in, gamma_out = filter_batch.gammas(ck["chain_linear"], linear_rgb)
+    from . import cuda_lib
+
+    lib = cuda_lib.load()
+    out = torch.empty((B * noi * noj, t, t, 4), dtype=f32, device=device)
+    rc = lib.svgr_blur_chunk(
+        canvas.data_ptr(), canvas.shape[0], ck["lut"].data_ptr(),
+        ck["bh"].data_ptr(), ck["bw"].data_ptr(), ck["src_alpha"].data_ptr(),
+        B, nsi, nsj, noi, noj, _GAMMA_CODE[gamma_in], _GAMMA_CODE[gamma_out],
+        out.data_ptr(), t, _stream(device),
+    )
+    _raise_on(rc, "blur_chunk")
+    blur_chunk.launches += 1
+    return out
+
+
+blur_chunk.launches = 0
+
+
+def pool_rows(pool, src, src_idx, dst_idx):
+    """pool[dst_idx] = src[src_idx] in place; returns pool.
+
+    pool (P, T, T, 4) and src (R, T, T, 4) f32; src_idx / dst_idx (n,)
+    int32 on the same device (indices out of range are skipped on the
+    card).
+    """
+    device = pool.device
+    if not _kernel_device(device, "pool_rows"):
+        return batch_exec._pool_rows(pool, src, src_idx, dst_idx)
+    t = pool.shape[1]
+    if t not in KERNEL_TILES:
+        raise ValueError(f"pool_rows: tile {t} not in {KERNEL_TILES}")
+    n = src_idx.shape[0]
+    if n == 0:
+        return pool
+    f32, i32 = torch.float32, torch.int32
+    _check(pool, "pool", f32, (None, t, t, 4), device)
+    _check(src, "src", f32, (None, t, t, 4), device)
+    _check(src_idx, "src_idx", i32, (n,), device)
+    _check(dst_idx, "dst_idx", i32, (n,), device)
+    from . import cuda_lib
+
+    lib = cuda_lib.load()
+    rc = lib.svgr_pool_rows(
+        pool.data_ptr(), pool.shape[0], src.data_ptr(), src.shape[0],
+        src_idx.data_ptr(), dst_idx.data_ptr(), n, t, _stream(device),
+    )
+    _raise_on(rc, "pool_rows")
+    pool_rows.launches += 1
+    return pool
+
+
+pool_rows.launches = 0
+
+KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows)
 
 
 def reset_launch_counts() -> None:
-    prepass_winding.launches = 0
-    scene_tiles.launches = 0
+    for kernel in KERNELS:
+        kernel.launches = 0

@@ -1,4 +1,4 @@
-"""Host lowering and execution of the single-pass render path.
+"""Host lowering and execution of the batched render path.
 
 Lowering (numpy, a copy of the JAX package's render_plan.py lowering half)
 compiles a whole scene into the batched form the executors run:
@@ -16,18 +16,25 @@ compiles a whole scene into the batched form the executors run:
     classes (_pack)
   * items sort by (tile, z) so per-tile composition walks each tile's run
     in z order
+  * isolation groups (opacity over a group, masks, filters, nested or
+    anti-aliased multi-draw clips) lower to passes whose output tiles land
+    in a pass pool; passes merge into one program per dependency level
+    (_plan_groups), and their tiles re-enter the parent stream as texture
+    or mask items
 
-Execution uploads the plan (plan_from_lowered) and runs it through
-ops/fused_exec, whose wrappers launch the CUDA kernels on a CUDA device and
-the plain PyTorch versions (ops/batch_exec) on the CPU.
+Execution uploads the plan once (upload_program) and runs it
+(run_program): each level's program, its post stage (filter chains,
+batched blur chunks, pool row writes), then the main stream.  The ops go
+through ops/fused_exec, whose wrappers launch the CUDA kernels on a CUDA
+device and the plain PyTorch versions on the CPU.
 
-Isolation passes (group opacity, masks, filters, nested and bbox-units
-clips), pattern paints and the interpreter are not ported yet: a scene that
-needs them raises NotImplementedError naming the ROADMAP item.
+Pattern paints, feImage and the interpreter are not ported yet: a scene
+that needs them raises NotImplementedError naming ROADMAP queue 1 item 7.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Any, NamedTuple
 
@@ -66,11 +73,7 @@ from .utils.constants import DEVICE_FLOAT, FLATNESS
 # argument
 DEFAULT_TILE = 32
 
-# ROADMAP items named by the NotImplementedError of unported features
-_TODO_PASSES = (
-    "isolation passes (group opacity, masks, filters, nested or "
-    "bbox-units clips) are not ported yet (ROADMAP queue 1 item 8)"
-)
+# the ROADMAP item named by the NotImplementedError of unported features
 _TODO_INTERP = "the interpreter is not ported yet (ROADMAP queue 1 item 7)"
 
 _FILL_RULE_ID = {None: 0, "nonzero": 0, "evenodd": 1}
@@ -119,8 +122,49 @@ def _subtree_hull(scene, transform: Transform) -> ConvexHull:
     return ConvexHull.merge(hulls)
 
 
+class _Clip(NamedTuple):
+    """A clip active for a subtree: its scene, its transform and the cache
+    key derived from both by content (_clip_key)."""
+
+    scene: Any
+    transform: Transform
+    key: tuple
+
+
+def _clip_key(clip_scene, transform: Transform) -> tuple:
+    """Content key of a clip: a digest of the clip scene's fills (their
+    segment arrays and fill rules), groups and transforms in walk order,
+    plus the clip transform's matrix bytes.
+
+    Content-equal clip scenes built as separate objects share cache
+    entries, and no key outlives or aliases its scene (object ids are
+    reused once an object dies).  Node kinds _clip_parts rejects add only
+    their kind: it raises on them before anything is cached.
+    """
+    digest = hashlib.blake2b(digest_size=16)
+
+    def walk(scene):
+        kind, args = scene
+        digest.update(b"%d;" % kind)
+        if kind == RENDER_FILL:
+            for arr in args[0].segments_as_curves():
+                digest.update(b"%d;" % arr.shape[0])
+                digest.update(arr.tobytes())
+            digest.update(str(args[2]).encode())
+        elif kind == RENDER_GROUP:
+            digest.update(b"%d;" % len(args))
+            for child in args:
+                walk(child)
+        elif kind == RENDER_TRANSFORM:
+            digest.update(args[1].m.tobytes())
+            walk(args[0])
+
+    walk(clip_scene)
+    return digest.digest(), transform.m.tobytes()
+
+
 def _collect_draws(scene, transform: Transform, opacity: float, clip, out: list) -> None:
-    """clip: None or (clip_scene, clip_transform) active for this subtree."""
+    """clip: None or the _Clip active for this subtree."""
     kind, args = scene
     if kind == RENDER_FILL:
         path, paint, fill_rule = args
@@ -164,10 +208,11 @@ def _collect_draws(scene, transform: Transform, opacity: float, clip, out: list)
         # composition, so both keep the cheap per-item multiply; several
         # records under a clip with AA edges diverge wherever they overlap,
         # so those isolate as a pass whose texture items carry the clip.
+        clip_of = _Clip(clip_scene, clip_tr, _clip_key(clip_scene, clip_tr))
         sub: list = []
-        _collect_draws(target, transform, opacity, (clip_scene, clip_tr), sub)
+        _collect_draws(target, transform, opacity, clip_of, sub)
         if len(sub) > 1 and not _clip_is_binary(clip_scene, clip_tr):
-            out.append(("pass", target, transform, opacity, (clip_scene, clip_tr)))
+            out.append(("pass", target, transform, opacity, clip_of))
         else:
             out.extend(sub)
     elif kind == RENDER_MASK:
@@ -186,7 +231,7 @@ def _collect_draws(scene, transform: Transform, opacity: float, clip, out: list)
         raise _Unsupported(f"scene kind {kind}")
 
 
-def _clip_parts(clip_scene, transform: Transform, cache: dict):
+def _clip_parts(clip_scene, transform: Transform):
     """Flatten a clip scene to per-fill (edge list, fill rule id) parts.
 
     Clip coverage follows the reference's mask_only render exactly
@@ -198,17 +243,6 @@ def _clip_parts(clip_scene, transform: Transform, cache: dict):
     evenodd in a multi-path clip) and overlapping / opposite-orientation
     parts are exact.
     """
-    # key by transform VALUE: clip transforms are often temporaries that
-    # die between passes, and CPython reuses their ids — an id-keyed
-    # entry then collides with a LATER different clip and silently
-    # returns stale parts (observed as nondeterministically dropped
-    # tiles on pass-heavy scenes; the clip scene itself is owned by the
-    # long-lived scene graph, so its id is stable for the whole lower)
-    key = (id(clip_scene), transform.m.tobytes())
-    cached = cache.get(key)
-    if cached is not None:
-        return cached
-
     parts: list = []
 
     def walk(scene, tr):
@@ -228,7 +262,6 @@ def _clip_parts(clip_scene, transform: Transform, cache: dict):
     walk(clip_scene, transform)
     if not parts:
         raise _Unsupported("empty clip")
-    cache[key] = parts
     return parts
 
 
@@ -241,7 +274,7 @@ def _clip_is_binary(clip_scene, clip_tr: Transform) -> bool:
     COMPOSE_IN exactly, so such clips skip the isolation pass
     (material-design: 936 nested-svg viewport clips stay one program)."""
     try:
-        parts = _clip_parts(clip_scene, clip_tr, {})
+        parts = _clip_parts(clip_scene, clip_tr)
     except _Unsupported:
         return False  # the normal path re-raises with context
     for edges, _rule in parts:
@@ -872,6 +905,41 @@ def _bin_draws(draw_lines: list, grid_h: int, grid_w: int, tile: int):
         yield int(d_arr[idx]), int(ti_arr[idx]), int(tj_arr[idx]), edges, carry
 
 
+def _filter_margin(flt, transform: Transform) -> tuple[int, int]:
+    """Conservative device-pixel growth of a filter chain in (rows, cols)."""
+    from .filter import FE_DROP_SHADOW, FE_GAUSSIAN_BLUR, FE_MORPHOLOGY, FE_OFFSET
+    from .ops import blur as blur_ops
+
+    mr = mc = 0.0
+    for kind, attrs, _inputs in flt.filters:
+        if kind == FE_GAUSSIAN_BLUR:
+            std_x, std_y = attrs
+            kernel = blur_ops.gaussian_kernel(transform, (std_x, std_x if std_y is None else std_y))
+            if kernel is not None:
+                mr += kernel.shape[0]
+                mc += kernel.shape[1]
+        elif kind == FE_OFFSET:
+            dx, dy = attrs
+            moved = transform.apply_vectors(np.array([[dx, dy]]))[0]
+            mr += abs(moved[0])
+            mc += abs(moved[1])
+        elif kind == FE_MORPHOLOGY:
+            rx, ry, _method = attrs
+            unit = transform.apply_vectors(np.array([[rx, 0.0], [0.0, ry]]))
+            mr += 2 * float(np.linalg.norm(unit[0]))
+            mc += 2 * float(np.linalg.norm(unit[1]))
+        elif kind == FE_DROP_SHADOW:
+            dx, dy, std, _color = attrs
+            kernel = blur_ops.gaussian_kernel(transform, (std, std))
+            if kernel is not None:
+                mr += kernel.shape[0]
+                mc += kernel.shape[1]
+            moved = transform.apply_vectors(np.array([[dx, dy]]))[0]
+            mr += abs(moved[0])
+            mc += abs(moved[1])
+    return int(np.ceil(mr)), int(np.ceil(mc))
+
+
 def _bucket(count: int, minimum: int = 32) -> int:
     size = minimum
     while size < count:
@@ -895,11 +963,27 @@ def _round_count(count: int, step: int) -> int:
     return need * step
 
 
-class _Builder:
-    """Lowers a pass-free scene into one packed item stream over a tile grid.
+class _Pass:
+    """One isolation pass: raw records + where its output lands in the pool."""
 
-    Isolation groups (opacity over a group, masks, filters, nested clips)
-    raise NotImplementedError: they need the pass pool of a later slice.
+    __slots__ = ("records", "src_tiles", "out_tiles", "post", "pool_base", "refs")
+
+    def __init__(self, records, src_tiles, out_tiles, post, pool_base, refs):
+        self.records = records
+        self.src_tiles = src_tiles
+        self.out_tiles = out_tiles
+        self.post = post
+        self.pool_base = pool_base
+        self.refs = refs
+
+
+class _Builder:
+    """Lowers a scene into one or more packed passes over a shared tile grid.
+
+    Isolation groups (opacity over a group, masks, filters, nested or
+    anti-aliased multi-draw clips) become separate passes rendered before
+    the stream that references them: each output tile of a pass re-enters
+    its parent stream as a texture item gathered from the pass pool.
     """
 
     def __init__(self, viewport, linear_rgb: bool, tile: int = DEFAULT_TILE):
@@ -915,6 +999,8 @@ class _Builder:
         self.clip_tile_cache: dict = {}  # (clip_key, ti, tj) -> tile result
         self.clip_cov_cache: dict = {}   # parts content key -> tile result
         self.clip_cov_dedup: dict = {}   # coverage f32 bytes -> canonical array
+        self.passes: list = []  # [_Pass] in emission order; merged by _plan_groups
+        self.pool_size = 0
         self.all_points: list = []
         self._blank_params = _paint_params(
             np.zeros(4, dtype=np.float64), None, Transform(), linear_rgb
@@ -932,11 +1018,9 @@ class _Builder:
         """
         if clip is None:
             return _UNCLIPPED
-        clip_scene, clip_tr = clip
-        # id(clip_tr) would collide when a dead transform's id is reused
-        # by a later different clip (nondeterministic dropped/phantom
-        # tiles); the matrix bytes are the real identity
-        clip_key = (id(clip_scene), clip_tr.m.tobytes())
+        # keyed by content (_clip_key): an id-based key collides once a
+        # dead scene's or transform's id is reused by a later clip
+        clip_key = clip.key
         tiles_map = self.clip_flat_cache.get(clip_key)
         if tiles_map is None:
             # bin every part over its whole tile window in one batched
@@ -946,7 +1030,7 @@ class _Builder:
             # — the old path computed those as exact-zero or ~1e-16
             # carry residues of closed contours, invisible either way
             parts = []
-            for lines, rule in _clip_parts(clip_scene, clip_tr, {}):
+            for lines, rule in _clip_parts(clip.scene, clip.transform):
                 parts.append((lines - self.shift, rule))
             tiles_map = {}
             if parts:
@@ -999,6 +1083,81 @@ class _Builder:
         self.clip_cov_cache[key] = result
         return result
 
+    # -- pass emission --------------------------------------------------------
+    def _finish_pass(self, sub_records: list, out_tiles=None, post=None):
+        """Record sorted records as a pass; returns {tile_id: pool_idx}.
+
+        Packing is deferred to _plan_groups so that independent passes merge
+        into one program per dependency level.
+        """
+        sub_records.sort(key=lambda r: (r[0], r[1]))
+        src_tiles = sorted({r[0] for r in sub_records})
+        if out_tiles is None:
+            out_tiles = src_tiles
+        base = self.pool_size
+        self.pool_size += len(out_tiles)
+        refs = sorted(
+            {r[10] for r in sub_records if r[10] >= 0}
+            | {r[11] for r in sub_records if r[11] >= 0}
+        )
+        self.passes.append(_Pass(sub_records, src_tiles, list(out_tiles), post, base, refs))
+        return {tile: base + rank for rank, tile in enumerate(out_tiles)}
+
+    def _emit_pass(self, scene, transform: Transform):
+        """Lower a subtree as an isolation pass; returns {tile_id: pool_idx}."""
+        sub_records = self.build(scene, transform)
+        if not sub_records:
+            return None
+        return self._finish_pass(sub_records)
+
+    def _emit_filter_pass(self, target, flt, transform: Transform):
+        """Lower filter(target): the pass output is the filtered, grown region."""
+        from .filter import _TODO_FE_IMAGE, FE_IMAGE
+
+        if any(kind == FE_IMAGE for kind, _attrs, _inputs in flt.filters):
+            raise NotImplementedError(_TODO_FE_IMAGE)
+        points_start = len(self.all_points)
+        sub_records = self.build(target, transform)
+        if not sub_records:
+            return None
+        # bbox-tight source region (the reference filters bbox-tight layers;
+        # its blur placement truncation is offset-dependent, so the same
+        # origin must reach the convolution)
+        pts = np.concatenate(self.all_points[points_start:], axis=0)
+        content_bbox = (
+            int(np.floor(pts[:, 0].min())) - 1,
+            int(np.floor(pts[:, 1].min())) - 1,
+            int(np.ceil(pts[:, 0].max())) + 1,
+            int(np.ceil(pts[:, 1].max())) + 1,
+        )
+        src_tiles = sorted({r[0] for r in sub_records})
+        mr, mc = _filter_margin(flt, transform)
+        rows = [t // self.grid_w for t in src_tiles]
+        cols = [t % self.grid_w for t in src_tiles]
+        ti0 = max(min(rows) - -(-mr // self.tile), 0)
+        ti1 = min(max(rows) + -(-mr // self.tile), self.grid_h - 1)
+        tj0 = max(min(cols) - -(-mc // self.tile), 0)
+        tj1 = min(max(cols) + -(-mc // self.tile), self.grid_w - 1)
+        dst_tiles = [
+            ti * self.grid_w + tj
+            for ti in range(ti0, ti1 + 1)
+            for tj in range(tj0, tj1 + 1)
+        ]
+        post = (flt, transform, content_bbox)
+        return self._finish_pass(sub_records, out_tiles=dst_tiles, post=post)
+
+    def _texture_record(self, tile: int, z: int, opacity, clip, tex_idx: int, mask_idx: int):
+        ti, tj = divmod(tile, self.grid_w)
+        clip_cov = self._clip_tile(clip, ti, tj)
+        if clip_cov is None:
+            return None
+        return (
+            tile, z, _NO_EDGES, _carry_consts(self.tile)[2],
+            None if clip_cov is _UNCLIPPED else clip_cov,
+            self._blank_params, 0, opacity, ti * self.tile, tj * self.tile,
+            tex_idx, mask_idx,
+        )
+
     # -- lowering -----------------------------------------------------------
     def _flatten_draws(self, draws: list) -> dict:
         """Flatten all draw geometry in one batched pass: {draw index: lines}.
@@ -1041,7 +1200,7 @@ class _Builder:
         return out
 
     def build(self, scene, transform: Transform) -> list:
-        """Subtree -> record list (z-sorted later)."""
+        """Subtree -> record list (z-sorted later); may append nested passes."""
         draws: list = []
         _collect_draws(scene, transform, 1.0, None, draws)
         flattened = self._flatten_draws(draws)
@@ -1049,8 +1208,44 @@ class _Builder:
         records: list = []
         plain: list = []  # (z, flat lines, params, rule, opacity, clip)
         for z, entry in enumerate(draws):
-            if entry[0] in ("pass", "mask", "filter"):
-                raise NotImplementedError(_TODO_PASSES)
+            if entry[0] == "pass":
+                _tag, target, tr, opacity, clip = entry
+                pool_of_tile = self._emit_pass(target, tr)
+                if pool_of_tile is None:
+                    continue
+                for tile, pool_idx in pool_of_tile.items():
+                    record = self._texture_record(tile, z, opacity, clip, pool_idx, -1)
+                    if record is not None:
+                        records.append(record)
+                continue
+
+            if entry[0] == "mask":
+                _tag, target, mask_scene, tr, mask_tr, opacity, clip = entry
+                target_tiles = self._emit_pass(target, tr)
+                if target_tiles is None:
+                    continue
+                mask_tiles = self._emit_pass(mask_scene, mask_tr)
+                if mask_tiles is None:
+                    continue  # empty mask hides the target entirely
+                for tile in sorted(set(target_tiles) & set(mask_tiles)):
+                    record = self._texture_record(
+                        tile, z, opacity, clip, target_tiles[tile], mask_tiles[tile]
+                    )
+                    if record is not None:
+                        records.append(record)
+                continue
+
+            if entry[0] == "filter":
+                _tag, target, flt, tr, opacity, clip = entry
+                pool_of_tile = self._emit_filter_pass(target, flt, tr)
+                if pool_of_tile is None:
+                    continue
+                for tile, pool_idx in pool_of_tile.items():
+                    record = self._texture_record(tile, z, opacity, clip, pool_idx, -1)
+                    if record is not None:
+                        records.append(record)
+                continue
+
             _tag, path, tr, paint, fill_rule, opacity, clip = entry
             if paint is None:
                 continue
@@ -1068,7 +1263,8 @@ class _Builder:
                 raise _Unsupported(f"fill rule {fill_rule}")
             plain.append((z, flat, params, rule, opacity, clip))
 
-        # all plain draws bin in ONE vectorized pass (records z-sort later)
+        # all plain draws bin in ONE vectorized pass (records z-sort later;
+        # passes above already emitted their pool rows in z order)
         for di, ti, tj, edges, carry in _bin_draws(
             [p[1] for p in plain], self.grid_h, self.grid_w, self.tile
         ):
@@ -1260,11 +1456,12 @@ class _Builder:
         out.extend(records[pos:])
         return out, np.stack(fields).astype(DEVICE_FLOAT)
 
-    def _pack(self, records: list):
+    def _pack(self, records: list, pad_tile: int | None = None):
         """Sorted records -> (items dict, big-class tuple, clip array).
 
-        Padding items carry tile_id == num_tiles (the executors' scratch
-        row).
+        pad_tile: tile id written into padding items (past every real
+        tile) — the canvas tile count for the main stream, the virtual row
+        count for merged pass groups.
 
         Items over SMALL_SEGS edges go to per-width class arrays (the big
         pre-pass); each class pads to its own power-of-two width, so one
@@ -1276,6 +1473,8 @@ class _Builder:
 
         records = self._cull_occluded(records)
         records, field_stack = self._collapse_runs(records)
+        if pad_tile is None:
+            pad_tile = self.num_tiles
         n = len(records)
         # small passes pad to a small power of two; large ones to an
         # economically-rounded count of full chunks
@@ -1358,7 +1557,7 @@ class _Builder:
             "tex_idx": np.full(n_pad, -1, np.int32),
             "mask_idx": np.full(n_pad, -1, np.int32),
             "clip_idx": np.full(n_pad, -1, np.int32),
-            "tile_id": np.full(n_pad, self.num_tiles, np.int32),
+            "tile_id": np.full(n_pad, pad_tile, np.int32),
             "fill_rule": np.zeros(n_pad, np.int32),
             "opacity": np.zeros(n_pad, DEVICE_FLOAT),
             "tile_r": np.zeros(n_pad, DEVICE_FLOAT),
@@ -1439,15 +1638,114 @@ class _Builder:
         return items, tuple(bigs), clips
 
 
+def _plan_groups(builder: "_Builder") -> list:
+    """Merge independent isolation passes into per-level programs.
+
+    A pass depends only on pool rows written by passes emitted before it, so
+    leveling by referenced owners gives a correct topological batching: every
+    level is one packed program over a *virtual row space* (the concatenation
+    of its passes' output/source tiles), followed by the level's post stage
+    (pool rows of plain passes, filter post-ops of filter passes).
+
+    Pool rows are renumbered into the post stage's emission order — level
+    by level, per-part outputs first, then each batched-blur chunk's
+    (ops/filter_batch) — so each level's outputs form one contiguous block
+    ("pool_lo" + "pool_n" on the group), as in the JAX package.
+    Returns (groups, lut) where lut maps emission-order pool rows to the
+    new order; the caller remaps the main stream's tex/mask references.
+    """
+    from .ops import filter_batch
+
+    passes = builder.passes
+    if not passes:
+        return [], None
+    owner = np.zeros(builder.pool_size, np.int32)
+    for i, p in enumerate(passes):
+        owner[p.pool_base : p.pool_base + len(p.out_tiles)] = i
+    level = [0] * len(passes)
+    for i, p in enumerate(passes):
+        if p.refs:
+            level[i] = 1 + max(level[int(owner[r])] for r in p.refs)
+
+    lut = np.zeros(max(builder.pool_size, 1), np.int32)
+    new_row = 0
+    groups = []
+    for lev in range(max(level) + 1):
+        members = [p for i, p in enumerate(passes) if level[i] == lev]
+        pool_lo = new_row
+        row = 0
+        merged: list = []
+        parts: list = []
+        for p in members:
+            # filter passes render their source tiles; the post-op produces
+            # the (grown) out_tiles. Plain passes output what they render.
+            row_tiles = p.src_tiles if p.post is not None else p.out_tiles
+            rank = {t: k for k, t in enumerate(row_tiles)}
+            for r in p.records:
+                merged.append((row + rank[r[0]],) + r[1:])
+            parts.append(
+                {
+                    "row_start": row,
+                    "n_rows": len(row_tiles),
+                    "src_tiles": p.src_tiles,
+                    "out_tiles": p.out_tiles,
+                    "post": p.post,
+                    "pool_base": None,  # assigned below, in emission order
+                }
+            )
+            row += len(row_tiles)
+
+        chunk_groups, batched = filter_batch.plan_level(
+            parts, builder.grid_w, (builder.v0, builder.v1), builder.tile
+        )
+
+        def assign(pi):
+            nonlocal new_row
+            n = len(members[pi].out_tiles)
+            parts[pi]["pool_base"] = new_row
+            base = members[pi].pool_base
+            lut[base : base + n] = np.arange(new_row, new_row + n)
+            new_row += n
+
+        for pi in range(len(parts)):
+            if pi not in batched:
+                assign(pi)
+        for grp, _lin in chunk_groups:
+            for pi, spec in grp:
+                assign(pi)
+                spec["pool_base"] = parts[pi]["pool_base"]
+        chunks = filter_batch.build_chunks(chunk_groups, builder.grid_w, builder.tile)
+
+        merged.sort(key=lambda r: (r[0], r[1]))
+        items, bigs, clips = builder._pack(merged, pad_tile=row)
+        for key in ("tex_idx", "mask_idx"):
+            arr = items[key]
+            items[key] = np.where(arr >= 0, lut[np.maximum(arr, 0)], arr)
+        groups.append(
+            {
+                "items": items,
+                "bigs": bigs,
+                "clips": clips,
+                "rows": row,
+                "parts": parts,
+                "pool_lo": pool_lo,
+                "pool_n": new_row - pool_lo,
+                "_blur_batch": (chunks, batched),
+                "needs_pool": any(p.refs for p in members),
+            }
+        )
+    return groups, lut
+
+
 class Lowered(NamedTuple):
-    """A fully lowered scene: packed device arrays + the pass schedule."""
+    """A fully lowered scene: packed host arrays + the pass schedule."""
 
     items: dict  # main-stream per-item arrays (leading dim N)
     bigs: tuple  # heavy edge lists, one (M_c, S_c, 4) array per width class
     clips: Any  # deduplicated (U, T, T) precomputed clip coverage fields
     grid: tuple  # (grid_h, grid_w) canvas tiles
     hull: Any  # ConvexHull of all draw geometry
-    groups: list  # isolation-pass programs: always [] in this port
+    groups: list  # merged isolation-pass programs (see _plan_groups)
     patterns: Any  # pattern-tile atlas: always None in this port
     tile: int  # canvas tile size this plan was lowered for
 
@@ -1458,8 +1756,10 @@ def lower_scene(scene, transform: Transform, viewport, linear_rgb: bool,
 
     viewport: (origin0, origin1, extent0, extent1) in device pixels.
     Returns a Lowered plan: the main item stream, its segment-class and
-    clip arrays.  Scenes that need isolation passes or pattern paints raise
-    NotImplementedError; scenes the batched path cannot express at all
+    clip arrays, and the merged isolation-pass groups whose pooled output
+    tiles the main items reference by tex_idx/mask_idx.  Scenes with
+    pattern paints or feImage filters raise NotImplementedError (they need
+    the interpreter); scenes the batched path cannot express at all
     (per-paint colorspace overrides, > MAX_STOPS stops) return None, as in
     the JAX package, whose callers then use the interpreter.
     """
@@ -1476,8 +1776,13 @@ def lower_scene(scene, transform: Transform, viewport, linear_rgb: bool,
         hull = ConvexHull(np.concatenate(builder.all_points, axis=0))
     else:
         hull = ConvexHull(np.zeros((0, 2)))
+    groups, pool_lut = _plan_groups(builder)
+    if pool_lut is not None:
+        for key in ("tex_idx", "mask_idx"):
+            arr = items[key]
+            items[key] = np.where(arr >= 0, pool_lut[np.maximum(arr, 0)], arr)
     return Lowered(
-        items, bigs, clips, (builder.grid_h, builder.grid_w), hull, [], None,
+        items, bigs, clips, (builder.grid_h, builder.grid_w), hull, groups, None,
         builder.tile,
     )
 
@@ -1485,31 +1790,13 @@ def lower_scene(scene, transform: Transform, viewport, linear_rgb: bool,
 # ----------------------------------------------------------------------------
 # execution
 # ----------------------------------------------------------------------------
-def plan_from_lowered(lowered, device) -> DevicePlan:
-    """Upload a Lowered plan's arrays to `device` as a DevicePlan.
-
-    Takes a Lowered NamedTuple of numpy arrays from either package (keys
-    starting with "_", such as the JAX package's "_device_cache", are
-    ignored), so the JAX lowering can feed the port's executors.  Per-item
-    scalar parameters pack into the iparams / fparams columns both
-    executors read.  Plans with isolation passes, texture or mask items,
-    or pattern paints raise NotImplementedError.
-    """
-    if lowered.groups:
-        raise NotImplementedError(_TODO_PASSES)
-    items = lowered.items
+def _upload_items(items, bigs, clips, tile: int, grid, device) -> DevicePlan:
+    """Upload one packed item stream (the main stream or a pass group's) to
+    `device`; per-item scalar parameters pack into the iparams / fparams
+    columns the executors read."""
     kind = np.asarray(items["kind"])
-    if (
-        lowered.patterns is not None
-        or (np.asarray(items["pat_idx"]) >= 0).any()
-        or (kind == PAINT_PATTERN).any()
-    ):
+    if (np.asarray(items["pat_idx"]) >= 0).any() or (kind == PAINT_PATTERN).any():
         raise NotImplementedError(f"pattern paints: {_TODO_INTERP}")
-    if (np.asarray(items["tex_idx"]) >= 0).any() or (
-        np.asarray(items["mask_idx"]) >= 0
-    ).any():
-        raise NotImplementedError(_TODO_PASSES)
-
     n = kind.shape[0]
     ip = np.zeros((n, be.N_IPARAMS), np.int32)
     ip[:, be.I_KIND] = kind
@@ -1518,6 +1805,8 @@ def plan_from_lowered(lowered, device) -> DevicePlan:
     ip[:, be.I_BIG] = items["big_idx"]
     ip[:, be.I_CLIP] = items["clip_idx"]
     ip[:, be.I_FIELD] = items["field_idx"] if "field_idx" in items else -1
+    ip[:, be.I_TEX] = items["tex_idx"]
+    ip[:, be.I_MASK] = items["mask_idx"]
     fp = np.zeros((n, be.N_FPARAMS), np.float32)
     fp[:, be.F_OPACITY] = items["opacity"]
     fp[:, be.F_TILE_R] = items["tile_r"]
@@ -1535,11 +1824,10 @@ def plan_from_lowered(lowered, device) -> DevicePlan:
     def up(a, dtype=np.float32):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
-    clips = lowered.clips
     field = items.get("field")
     return DevicePlan(
-        tile=int(lowered.tile),
-        grid=tuple(int(g) for g in lowered.grid),
+        tile=int(tile),
+        grid=tuple(int(g) for g in grid),
         lines=up(items["lines"]),
         carry=up(items["carry"]),
         tile_id=up(items["tile_id"], np.int32),
@@ -1547,21 +1835,229 @@ def plan_from_lowered(lowered, device) -> DevicePlan:
         fparams=up(fp),
         stop_offsets=up(items["stop_offsets"]),
         stop_colors=up(items["stop_colors"]),
-        bigs=tuple(up(b) for b in lowered.bigs),
+        bigs=tuple(up(b) for b in bigs),
         clips=up(clips) if clips is not None and clips.shape[0] else None,
         field=up(field) if field is not None else None,
+        reads_pool=bool((ip[:, be.I_TEX] >= 0).any() or (ip[:, be.I_MASK] >= 0).any()),
     )
 
 
-def execute_lowered(lowered, device):
-    """Execute a pass-free Lowered plan on `device`: canvas tiles
-    (num_tiles, T, T, 4) f32 premultiplied.
+def plan_from_lowered(lowered, device) -> DevicePlan:
+    """Upload a Lowered plan's main item stream to `device` as a DevicePlan.
 
-    On a CUDA device the plan runs through the two CUDA kernels (prepass
-    winding, then the scene tiles); on the CPU through their plain PyTorch
-    versions.
+    Takes a Lowered NamedTuple of numpy arrays from either package (keys
+    starting with "_", such as the JAX package's "_device_cache", are
+    ignored), so the JAX lowering can feed the port's executors.  Its
+    isolation-pass groups upload with upload_program.  Plans with pattern
+    paints raise NotImplementedError.
     """
-    return fused_exec.execute_items_fused(plan_from_lowered(lowered, device))
+    if lowered.patterns is not None:
+        raise NotImplementedError(f"pattern paints: {_TODO_INTERP}")
+    return _upload_items(lowered.items, lowered.bigs, lowered.clips,
+                         lowered.tile, lowered.grid, device)
+
+
+class _Level(NamedTuple):
+    """One dependency level of isolation passes, on the device."""
+
+    plan: DevicePlan  # the level's merged pass program, grid (1, rows)
+    needs_pool: bool  # its items read rows of earlier levels
+    copy_rows: tuple | None  # (canvas rows, pool rows) of its plain passes
+    filters: list  # per filter part not batched: (part, out rows, pool rows)
+    chunks: list  # batched blur chunks (filter_batch.upload_chunk)
+
+
+class DeviceProgram(NamedTuple):
+    """A Lowered plan on the device: the pass levels in order, the main
+    stream, and the pool size their rows need."""
+
+    levels: list
+    main: DevicePlan
+    pool_rows: int
+    tile: int
+    grid: tuple
+
+
+def upload_program(lowered, device) -> DeviceProgram:
+    """Upload every item stream, pool index and blur chunk of a Lowered
+    plan once; run_program then renders it any number of times."""
+    from .ops import filter_batch
+
+    dev = torch.device(device)
+
+    def rows(values):
+        return torch.as_tensor(np.asarray(values, np.int32), device=dev)
+
+    levels = []
+    pool_total = 0
+    for g in lowered.groups:
+        chunks, batched = g["_blur_batch"]
+        copy_src, copy_dst, filters = [], [], []
+        for pi, p in enumerate(g["parts"]):
+            n_out = len(p["out_tiles"])
+            pool_total = max(pool_total, p["pool_base"] + n_out)
+            if pi in batched:
+                continue
+            dst = range(p["pool_base"], p["pool_base"] + n_out)
+            if p["post"] is None:
+                copy_src.extend(range(p["row_start"], p["row_start"] + p["n_rows"]))
+                copy_dst.extend(dst)
+            else:
+                filters.append((p, rows(_part_out_local(p, lowered.grid[1])), rows(dst)))
+        levels.append(_Level(
+            plan=_upload_items(g["items"], g["bigs"], g["clips"], lowered.tile,
+                               (1, g["rows"]), dev),
+            needs_pool=bool(g["needs_pool"]),
+            copy_rows=(rows(copy_src), rows(copy_dst)) if copy_src else None,
+            filters=filters,
+            chunks=[filter_batch.upload_chunk(ck, dev) for ck in chunks],
+        ))
+    return DeviceProgram(levels, plan_from_lowered(lowered, dev), pool_total,
+                         int(lowered.tile), tuple(lowered.grid))
+
+
+class _Ops(NamedTuple):
+    """The executors a program runs through."""
+
+    execute: Any  # (DevicePlan, pool | None) -> canvas tiles
+    blur_chunk: Any  # (canvas, chunk, tile, linear_rgb) -> out-span tiles
+    pool_rows: Any  # (pool, src, src_idx, dst_idx) -> pool, in place
+
+
+# the kernel wrappers (plain versions for CPU tensors only), and the plain
+# PyTorch versions on any device: the oracle the kernels are held against
+KERNEL_OPS = _Ops(fused_exec.execute_items_fused, fused_exec.blur_chunk,
+                  fused_exec.pool_rows)
+
+
+def _plain_ops() -> _Ops:
+    from .ops import filter_batch
+
+    return _Ops(be.execute_items, filter_batch.apply_chunk, be._pool_rows)
+
+
+def new_pool(program: DeviceProgram):
+    """The pass pool a program's levels write: (P, T, T, 4) f32 zeros, or
+    None for a plan without isolation passes."""
+    if not program.levels:
+        return None
+    t = program.tile
+    return torch.zeros((program.pool_rows, t, t, 4), dtype=torch.float32,
+                       device=program.main.lines.device)
+
+
+def run_program(program: DeviceProgram, viewport=(0, 0), linear_rgb: bool = False,
+                pool=None, plain: bool = False):
+    """Render a DeviceProgram: canvas tiles (num_tiles, T, T, 4) f32.
+
+    The mirror of the JAX package's execute_lowered: each dependency
+    level's pass program runs through the scene executor (reading the pool
+    where its items reference earlier levels), its post stage writes the
+    level's rows into the pool, and the main stream runs last.  pool:
+    new_pool(program) to reuse across frames (every row is rewritten
+    before it is read), or None for a fresh one.  plain=True runs the
+    plain PyTorch versions of the kernels on the same tensors.
+    """
+    ops = _plain_ops() if plain else KERNEL_OPS
+    if pool is None:
+        pool = new_pool(program)
+    grid_w = program.grid[1]
+    for level in program.levels:
+        canvas = ops.execute(level.plan, pool if level.needs_pool else None)
+        _apply_group_post(canvas, pool, level, grid_w, viewport, linear_rgb,
+                          program.tile, ops)
+    return ops.execute(program.main, pool)
+
+
+def _apply_group_post(canvas, pool, level: _Level, grid_w, viewport, linear_rgb,
+                      t_size, ops: _Ops):
+    """A level's post stage: its new rows written into the pool in place.
+
+    One pool_rows launch per output block: the level's plain pass rows
+    (straight from the canvas), each filter part's output tiles, each blur
+    chunk's out tiles (picked by out_idx).  This replaces the JAX package's
+    out-tile gather, row concatenation, permutation and level update.
+    """
+    if level.copy_rows is not None:
+        ops.pool_rows(pool, canvas, *level.copy_rows)
+    for part, src_idx, dst_idx in level.filters:
+        tiles = _apply_part_filter(canvas, part, grid_w, viewport, linear_rgb, t_size)
+        ops.pool_rows(pool, tiles, src_idx, dst_idx)
+    for ck in level.chunks:
+        tiles = ops.blur_chunk(canvas, ck, t_size, linear_rgb)
+        ops.pool_rows(pool, tiles, ck["out_idx"], ck["pool_idx"])
+
+
+def _part_out_local(part, grid_w: int) -> list:
+    """Row of each out tile of a filter part in _apply_part_filter's
+    output (its out span, row-major)."""
+    d_rows = [int(t) // grid_w for t in part["out_tiles"]]
+    d_cols = [int(t) % grid_w for t in part["out_tiles"]]
+    di0, dj0 = min(d_rows), min(d_cols)
+    ntj = max(d_cols) - dj0 + 1
+    return [(r - di0) * ntj + (c - dj0) for r, c in zip(d_rows, d_cols)]
+
+
+def _apply_part_filter(canvas, part, grid_w, viewport, linear_rgb, t_size):
+    """Filter post-op for one merged-group part: assemble the pass's rendered
+    rows into an image, run the filter chain, cut the grown result into the
+    tiles of its out span, row-major (the part's out tiles are rows
+    _part_out_local of it)."""
+    from .core.layer import merge_at
+
+    flt, transform, content_bbox = part["post"]
+    v0, v1 = int(viewport[0]), int(viewport[1])
+    src_tiles = part["src_tiles"]
+    rows = canvas[part["row_start"] : part["row_start"] + part["n_rows"]]
+    dev = canvas.device
+
+    # assemble the span of source tiles into one image
+    s_rows = [t // grid_w for t in src_tiles]
+    s_cols = [t % grid_w for t in src_tiles]
+    si0, sj0 = min(s_rows), min(s_cols)
+    nsi = max(s_rows) - si0 + 1
+    nsj = max(s_cols) - sj0 + 1
+    local = [(r - si0) * nsj + (c - sj0) for r, c in zip(s_rows, s_cols)]
+    span = canvas.new_zeros((nsi * nsj, t_size, t_size, 4))
+    span[torch.as_tensor(local, device=dev)] = rows
+    image = span.reshape(nsi, nsj, t_size, t_size, 4)
+    image = image.permute(0, 2, 1, 3, 4).reshape(nsi * t_size, nsj * t_size, 4)
+
+    # bbox-tight source crop: the filter sees the same layer origin the
+    # reference's interpreter would, so truncation-sensitive placement
+    # (blur offsets) matches bit-for-bit
+    or_, oc = si0 * t_size, sj0 * t_size  # span origin in canvas pixels
+    r0 = max(content_bbox[0] - v0 - or_, 0)
+    c0 = max(content_bbox[1] - v1 - oc, 0)
+    r1 = min(content_bbox[2] - v0 - or_, nsi * t_size)
+    c1 = min(content_bbox[3] - v1 - oc, nsj * t_size)
+    crop = image[r0:r1, c0:c1]
+    layer = Layer(crop, (v0 + or_ + r0, v1 + oc + c0), pre_alpha=True, linear_rgb=linear_rgb)
+    filtered = flt(transform, layer).convert(pre_alpha=True, linear_rgb=linear_rgb)
+
+    out_tiles = part["out_tiles"]
+    d_rows = [int(t) // grid_w for t in out_tiles]
+    d_cols = [int(t) % grid_w for t in out_tiles]
+    di0, dj0 = min(d_rows), min(d_cols)
+    nti = max(d_rows) - di0 + 1
+    ntj = max(d_cols) - dj0 + 1
+    dst = canvas.new_zeros((nti * t_size, ntj * t_size, 4))
+    dst = merge_at(dst, filtered.image,
+                   (filtered.x - v0 - di0 * t_size, filtered.y - v1 - dj0 * t_size))
+    tiles = dst.reshape(nti, t_size, ntj, t_size, 4).permute(0, 2, 1, 3, 4)
+    return tiles.reshape(nti * ntj, t_size, t_size, 4).contiguous()
+
+
+def execute_lowered(lowered, device, viewport=(0, 0), linear_rgb: bool = False):
+    """Execute a Lowered plan on `device`: canvas tiles (num_tiles, T, T, 4)
+    f32 premultiplied.
+
+    viewport: the canvas origin (v0, v1) in device pixels (filter
+    post-ops place their output by it).  On a CUDA device the plan runs
+    through the CUDA kernels (prepass winding, scene tiles, blur chunk,
+    pool rows); on the CPU through their plain PyTorch versions.
+    """
+    return run_program(upload_program(lowered, device), viewport, linear_rgb)
 
 
 def tiles_to_layer(tiles, grid, tile: int, viewport, linear_rgb: bool) -> Layer:
@@ -1583,7 +2079,7 @@ def render_fast(scene, transform: Transform, viewport, linear_rgb: bool = False,
     lowered = lower_scene(scene, transform, viewport, linear_rgb, tile)
     if lowered is None:
         return None
-    tiles = execute_lowered(lowered, device)
+    tiles = execute_lowered(lowered, device, viewport[:2], linear_rgb)
     layer = tiles_to_layer(tiles, lowered.grid, lowered.tile, viewport, linear_rgb)
     return layer, lowered.hull
 
@@ -1591,23 +2087,34 @@ def render_fast(scene, transform: Transform, viewport, linear_rgb: bool = False,
 class CompiledScene:
     """A scene lowered and uploaded once, rendered many times (serving).
 
-    Repeated .render() calls reuse the device plan; each frame runs the
-    executors anew.
+    Every item stream, pool index and blur chunk is uploaded once, and one
+    pass pool serves every frame; each frame re-runs the pass levels and
+    the main stream.
     """
 
     def __init__(self, lowered, viewport, linear_rgb: bool, device):
         self._lowered = lowered
         self._viewport = viewport
         self._linear_rgb = linear_rgb
-        self._plan = plan_from_lowered(lowered, device)
+        self._program = upload_program(lowered, device)
+        self._pool = new_pool(self._program)
 
     @property
     def plan(self) -> DevicePlan:
-        return self._plan
+        """The main item stream on the device."""
+        return self._program.main
 
-    def render_tiles(self):
-        """Raw canvas tiles (num_tiles, T, T, 4), premultiplied."""
-        return fused_exec.execute_items_fused(self._plan)
+    @property
+    def program(self) -> DeviceProgram:
+        return self._program
+
+    def render_tiles(self, plain: bool = False):
+        """Raw canvas tiles (num_tiles, T, T, 4), premultiplied.
+
+        plain=True renders through the plain PyTorch versions of the
+        kernels on the same device tensors (their oracle)."""
+        return run_program(self._program, self._viewport[:2], self._linear_rgb,
+                           self._pool, plain=plain)
 
     def render(self) -> Layer:
         """Viewport-sized premultiplied Layer."""

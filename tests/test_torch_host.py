@@ -110,18 +110,25 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+# documents that still need the interpreter (ROADMAP queue 1 item 7):
+# pattern paints, also inside an opacity group or a mask, and feImage
 GROUP_OPACITY = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
-<g opacity='0.5'><rect x='4' y='4' width='30' height='20' fill='red'/>
+<defs><pattern id='p' width='8' height='8' patternUnits='userSpaceOnUse'>
+<rect width='4' height='4' fill='#d04020'/></pattern></defs>
+<g opacity='0.5'><rect x='4' y='4' width='30' height='20' fill='url(#p)'/>
 <circle cx='30' cy='24' r='12' fill='blue'/></g></svg>"""
 PATTERN = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
 <defs><pattern id='p' width='8' height='8' patternUnits='userSpaceOnUse'>
 <rect width='4' height='4' fill='#d04020'/></pattern></defs>
 <rect x='4' y='4' width='50' height='30' fill='url(#p)'/></svg>"""
 MASK = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
-<defs><mask id='m'><circle cx='30' cy='24' r='16' fill='white'/></mask></defs>
+<defs><pattern id='p' width='8' height='8' patternUnits='userSpaceOnUse'>
+<rect width='4' height='4' fill='white'/></pattern>
+<mask id='m'><circle cx='30' cy='24' r='16' fill='url(#p)'/></mask></defs>
 <rect x='4' y='4' width='50' height='30' fill='#2060c0' mask='url(#m)'/></svg>"""
 FILTER = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
-<defs><filter id='f'><feGaussianBlur stdDeviation='2'/></filter></defs>
+<defs><g id='frag'><circle cx='12' cy='12' r='10' fill='lime'/></g>
+<filter id='f'><feImage href='#frag'/></filter></defs>
 <circle cx='30' cy='24' r='12' fill='#a0b020' filter='url(#f)'/></svg>"""
 
 
@@ -142,7 +149,9 @@ def test_unported_features_raise(svg):
 
 
 def test_jax_plan_with_passes_is_refused():
+    """A JAX plan whose passes paint patterns (its lowering rendered the
+    pattern tiles through its interpreter) is refused."""
     lowered = jax_lower(GROUP_OPACITY, 32)
-    assert lowered.groups
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    assert lowered.groups and lowered.patterns is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
         plan_from_lowered(lowered, "cpu")

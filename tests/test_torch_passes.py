@@ -1,0 +1,358 @@
+"""The port's isolation-pass path against the JAX package.
+
+Documents with group opacity, masks, nested / anti-aliased / bbox-units
+clips, lone blurs and multi-primitive filter chains: the port's lowering
+must be bit-identical to the JAX package's (groups and blur-chunk tensors
+included); the port's plain executors (the CPU path of every kernel
+wrapper) must match JAX execute_lowered under SVGR_FUSED=0 (its XLA
+executor) and SVGR_FUSED=interp (its Pallas kernels in interpret mode)
+within 1e-5; the CLI PNG must stay within 1/255 of the JAX CLI's.  The
+kernels themselves run only on a CUDA card, where chip_smoke.py holds them
+against these plain versions.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import svgrasterize_tpu.render_plan as jrp
+from svgrasterize_tpu.core.png import read_png
+from svgrasterize_tpu.utils.stress import stress_doc as j_stress_doc
+
+import svgrasterize_tpu_torch.render_plan as trp
+from svgrasterize_tpu_torch.cli import main as torch_main
+from svgrasterize_tpu_torch.core.transform import Transform as TTransform
+from svgrasterize_tpu_torch.ops import batch_exec, fused_exec
+from svgrasterize_tpu_torch.utils.stress import stress_doc
+
+from test_filter_batch import BLURS, MIXED
+from test_torch_cli import _assert_png_close, _jax_png
+from test_torch_lowering import jax_lower, torch_lower, torch_scene, viewport_of
+
+# The bound tests/test_fused_exec.py holds between the JAX package's own
+# two executors.
+EXEC_TOL = 1e-5
+
+# the mask and filter documents of tests/test_render_plan.py
+MASKS = """<svg xmlns="http://www.w3.org/2000/svg" width="128" height="96">
+  <defs>
+    <mask id="m">
+      <rect x="0" y="0" width="128" height="96" fill="white"/>
+      <circle cx="64" cy="48" r="30" fill="black"/>
+    </mask>
+    <mask id="grad_m">
+      <linearGradient id="mg"><stop offset="0" stop-color="white"/>
+      <stop offset="1" stop-color="black"/></linearGradient>
+      <rect x="0" y="0" width="128" height="96" fill="url(#mg)"/>
+    </mask>
+  </defs>
+  <rect x="8" y="8" width="112" height="80" fill="tomato" mask="url(#m)"/>
+  <circle cx="64" cy="48" r="20" fill="navy" mask="url(#grad_m)"/>
+</svg>"""
+
+MASK_HIDES = """<svg xmlns="http://www.w3.org/2000/svg" width="96" height="96">
+  <defs><mask id="m"><rect x="0" y="0" width="48" height="96" fill="white"/></mask></defs>
+  <rect x="0" y="0" width="96" height="96" fill="lime" mask="url(#m)"/>
+</svg>"""
+
+FILTER_BLUR_OFFSET = """<svg xmlns="http://www.w3.org/2000/svg" width="160" height="120">
+  <defs>
+    <filter id="b"><feGaussianBlur stdDeviation="3"/></filter>
+    <filter id="o"><feOffset dx="6" dy="4"/></filter>
+  </defs>
+  <rect x="30" y="30" width="60" height="40" fill="#2266aa" filter="url(#b)"/>
+  <circle cx="120" cy="60" r="22" fill="tomato" filter="url(#o)"/>
+</svg>"""
+
+DROP_SHADOW_CHAIN = """<svg xmlns="http://www.w3.org/2000/svg" width="128" height="128">
+  <defs>
+    <filter id="ds">
+      <feGaussianBlur in="SourceAlpha" stdDeviation="2" result="blur"/>
+      <feOffset in="blur" dx="4" dy="4" result="shadow"/>
+      <feMerge><feMergeNode in="shadow"/><feMergeNode in="SourceGraphic"/></feMerge>
+    </filter>
+  </defs>
+  <rect x="24" y="24" width="64" height="64" fill="gold" filter="url(#ds)"/>
+</svg>"""
+
+# every isolation construct at once: nested group opacity, an anti-aliased
+# clip over a multi-draw group, a nested clip, a bbox-units clip, a
+# gradient mask, a lone blur and a SourceAlpha blur, a drop shadow, a
+# colour-matrix / composite chain, and a filter inside an opacity group
+# (two dependency levels)
+PASSES = """<svg xmlns='http://www.w3.org/2000/svg' width='160' height='128'>
+<defs>
+ <linearGradient id='mg' x1='0' y1='0' x2='1' y2='0.3'>
+  <stop offset='0' stop-color='white'/><stop offset='1' stop-color='#202020'/></linearGradient>
+ <mask id='m'><rect x='80' y='56' width='80' height='72' fill='url(#mg)'/></mask>
+ <clipPath id='c'><circle cx='44' cy='40' r='30'/></clipPath>
+ <clipPath id='c2'><rect x='20' y='60' width='60' height='50' transform='rotate(12 50 85)'/></clipPath>
+ <clipPath id='cb' clipPathUnits='objectBoundingBox'><circle cx='0.5' cy='0.5' r='0.45'/></clipPath>
+ <filter id='b'><feGaussianBlur stdDeviation='2 3'/></filter>
+ <filter id='ba'><feGaussianBlur in='SourceAlpha' stdDeviation='1.5'/></filter>
+ <filter id='sh'><feDropShadow dx='3' dy='2' stdDeviation='1.5' flood-color='#203040'
+   flood-opacity='0.6'/></filter>
+ <filter id='cm'><feColorMatrix type='saturate' values='0.3' result='s'/>
+   <feComposite in='s' in2='SourceGraphic' operator='atop'/></filter>
+</defs>
+<rect x='0' y='0' width='160' height='128' fill='#f0f0e0'/>
+<g opacity='0.6'><rect x='8' y='8' width='50' height='40' fill='#d03020'/>
+ <circle cx='50' cy='40' r='18' fill='#2050d0'/>
+ <g opacity='0.5'><rect x='30' y='30' width='30' height='30' fill='#20a040'/>
+  <circle cx='60' cy='55' r='10' fill='#a0a020'/></g></g>
+<g clip-path='url(#c)'><rect x='10' y='10' width='60' height='40' fill='#802080'/>
+ <circle cx='60' cy='50' r='20' fill='#208080' fill-opacity='0.7'/></g>
+<g clip-path='url(#c2)'><g clip-path='url(#c)'><rect x='20' y='20' width='60' height='90'
+ fill='#c08020'/></g><circle cx='40' cy='90' r='14' fill='#4040c0'/></g>
+<g clip-path='url(#cb)'><rect x='100' y='8' width='50' height='40' fill='#10a0c0'/>
+ <rect x='110' y='18' width='30' height='30' fill='#c01060' fill-opacity='0.6'/></g>
+<rect x='86' y='60' width='70' height='60' fill='#3070c0' mask='url(#m)'/>
+<g opacity='0.8'><rect x='96' y='70' width='30' height='20' fill='#e02080' filter='url(#b)'/>
+ <circle cx='130' cy='100' r='12' fill='#20e080'/></g>
+<ellipse cx='30' cy='112' rx='18' ry='9' fill='#a050a0' filter='url(#ba)'/>
+<rect x='64' y='96' width='24' height='20' fill='#f0a020' filter='url(#sh)'/>
+<circle cx='140' cy='40' r='12' fill='#e04010' filter='url(#cm)'/>
+</svg>"""
+
+DOCS = {
+    "blurs": BLURS,
+    "mixed": MIXED,
+    "masks": MASKS,
+    "mask_hides": MASK_HIDES,
+    "filter_blur_offset": FILTER_BLUR_OFFSET,
+    "drop_shadow_chain": DROP_SHADOW_CHAIN,
+    "passes": PASSES,
+    "stress": stress_doc(200, 256),
+}
+
+
+def test_stress_doc_is_the_jax_packages():
+    assert stress_doc(200, 256) == j_stress_doc(200, 256)
+    assert stress_doc(37, 128, seed=5) == j_stress_doc(37, 128, seed=5)
+
+
+def _assert_items_equal(ref: dict, got: dict):
+    ref_keys = {k for k in ref if not k.startswith("_")}
+    assert set(got) == ref_keys
+    for key in sorted(ref_keys):
+        a, b = np.asarray(ref[key]), got[key]
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        assert np.array_equal(a, b), key
+
+
+def _assert_lowered_equal(ref, got):
+    _assert_items_equal(ref.items, got.items)
+    assert tuple(got.grid) == tuple(ref.grid) and got.tile == ref.tile
+    for a, b in zip(ref.bigs, got.bigs, strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(got.clips, ref.clips)
+    assert np.array_equal(got.hull.raw_points, ref.hull.raw_points)
+    assert len(got.groups) == len(ref.groups)
+    for ga, gb in zip(ref.groups, got.groups):
+        _assert_items_equal(ga["items"], gb["items"])
+        for a, b in zip(ga["bigs"], gb["bigs"], strict=True):
+            assert np.array_equal(a, b)
+        assert np.array_equal(ga["clips"], gb["clips"])
+        for key in ("rows", "pool_lo", "pool_n", "needs_pool"):
+            assert ga[key] == gb[key], key
+        assert len(ga["parts"]) == len(gb["parts"])
+        for pa, pb in zip(ga["parts"], gb["parts"]):
+            for key in ("row_start", "n_rows", "src_tiles", "out_tiles", "pool_base"):
+                assert pa[key] == pb[key], key
+            assert (pa["post"] is None) == (pb["post"] is None)
+            if pa["post"] is not None:
+                assert pa["post"][2] == pb["post"][2]  # content bbox
+        chunks_a, batched_a = ga["_blur_batch"]
+        chunks_b, batched_b = gb["_blur_batch"]
+        assert batched_a == batched_b
+        assert len(chunks_a) == len(chunks_b)
+        for ca, cb in zip(chunks_a, chunks_b):
+            for key in ("B", "NSi", "NSj", "NOi", "NOj", "chain_linear", "pool_idx"):
+                assert ca[key] == cb[key], key
+            for key in ("lut", "bh", "bw", "out_idx", "src_alpha"):
+                assert ca[key].dtype == cb[key].dtype, key
+                assert np.array_equal(ca[key], cb[key]), key
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("name", sorted(DOCS))
+def test_pass_lowering_bit_identical(name, tile):
+    ref = jax_lower(DOCS[name], tile)
+    got = torch_lower(DOCS[name], tile)
+    assert ref is not None and got is not None
+    assert ref.groups, "the document must lower to isolation passes"
+    _assert_lowered_equal(ref, got)
+
+
+def test_passes_document_reaches_every_construct():
+    lowered = torch_lower(PASSES, 32)
+    assert len(lowered.groups) >= 2  # a filter nested in an opacity group
+    assert any(g["needs_pool"] for g in lowered.groups)
+    items = lowered.items
+    assert (items["tex_idx"] >= 0).any() and (items["mask_idx"] >= 0).any()
+    chunks = [ck for g in lowered.groups for ck in g["_blur_batch"][0]]
+    assert chunks and any(ck["src_alpha"].any() for ck in chunks)
+    posts = [p for g in lowered.groups for i, p in enumerate(g["parts"])
+             if p["post"] is not None and i not in g["_blur_batch"][1]]
+    assert len(posts) >= 2  # the drop shadow and the colour-matrix chain
+
+
+def _jax_tiles(svg, tile, mode, monkeypatch):
+    monkeypatch.setenv("SVGR_FUSED", mode)
+    lowered = jax_lower(svg, tile)  # a fresh plan: JAX caches per plan
+    return np.asarray(jrp.execute_lowered(lowered, (0, 0), False))
+
+
+EXEC_CASES = [(name, "0") for name in sorted(DOCS)] + [
+    ("passes", "interp"), ("masks", "interp"), ("blurs", "interp"),
+    ("stress", "interp"),
+]
+
+
+@pytest.mark.parametrize("name,mode", EXEC_CASES)
+def test_execute_lowered_matches_jax(name, mode, monkeypatch):
+    ref = _jax_tiles(DOCS[name], 32, mode, monkeypatch)
+    got = trp.execute_lowered(torch_lower(DOCS[name], 32), "cpu").numpy()
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= EXEC_TOL
+
+
+@pytest.mark.parametrize("name", ["masks", "blurs", "stress"])
+def test_port_executes_the_jax_plan(name, monkeypatch):
+    """The port's upload and executors on the plan the JAX package lowered
+    (groups and blur chunks included; these documents have no per-part
+    filter chain, whose Filter objects are the JAX package's)."""
+    monkeypatch.setenv("SVGR_FUSED", "0")
+    lowered = jax_lower(DOCS[name], 32)
+    ref = np.asarray(jrp.execute_lowered(lowered, (0, 0), False))
+    got = trp.execute_lowered(lowered, "cpu").numpy()
+    assert np.abs(got - ref).max() <= EXEC_TOL
+
+
+@pytest.mark.parametrize("linear", [False, True], ids=["srgb", "linear"])
+def test_linear_rgb_canvas_matches_jax(linear, monkeypatch):
+    monkeypatch.setenv("SVGR_FUSED", "0")
+    jtr = jrp.Transform().matrix(0, 1, 0, 1, 0, 0)
+    vp = viewport_of(BLURS)
+    from test_torch_lowering import jax_scene
+
+    ref = np.asarray(jrp.execute_lowered(
+        jrp.lower_scene(jax_scene(BLURS), jtr, vp, linear, tile=32), (0, 0), linear))
+    low = trp.lower_scene(torch_scene(BLURS), TTransform().matrix(0, 1, 0, 1, 0, 0),
+                          vp, linear, 32)
+    got = trp.execute_lowered(low, "cpu", (0, 0), linear).numpy()
+    assert np.abs(got - ref).max() <= EXEC_TOL
+
+
+def test_compiled_scene_serves_passes():
+    """compile_scene uploads once and re-runs the levels per frame through
+    the kernel wrappers; every frame equals a fresh execute_lowered and the
+    plain-version run of the same program."""
+    scene = torch_scene(PASSES)
+    tr = TTransform().matrix(0, 1, 0, 1, 0, 0)
+    vp = viewport_of(PASSES)
+    cs = trp.compile_scene(scene, tr, vp, tile=32, device="cpu")
+    fused_exec.reset_launch_counts()
+    first = cs.render_tiles()
+    second = cs.render_tiles()
+    assert torch.equal(first, second)
+    # on the CPU the wrappers take the plain versions: no kernel launches
+    assert all(k.launches == 0 for k in fused_exec.KERNELS)
+    ref = trp.execute_lowered(trp.lower_scene(scene, tr, vp, False, 32), "cpu")
+    assert torch.equal(first, ref)
+    assert torch.equal(cs.render_tiles(plain=True), first)
+    layer = cs.render()
+    assert tuple(layer.image.shape) == (vp[2], vp[3], 4)
+
+
+def test_pool_rows_plain_matches_pallas_writer(monkeypatch):
+    """The plain pool writer leaves the pool the JAX package's aliased
+    Pallas row writer leaves (interpret mode): exactly."""
+    monkeypatch.setenv("SVGR_FUSED", "interp")
+    rng = np.random.default_rng(3)
+    t, cap, n, lo = 16, 24, 7, 9
+    pool = rng.random((cap, t, t, 4), dtype=np.float32)
+    rows = rng.random((n, t, t, 4), dtype=np.float32)
+
+    def planar(a):
+        return a.transpose(0, 1, 3, 2).reshape(a.shape[0], t, 4 * t)
+
+    ref = np.asarray(jrp._pool_update_aliased(
+        jnp.asarray(planar(pool)), jnp.asarray(planar(rows)), lo, t))
+    got = torch.from_numpy(pool.copy())
+    src_idx = torch.arange(n, dtype=torch.int32)
+    out = fused_exec.pool_rows(got, torch.from_numpy(rows), src_idx, src_idx + lo)
+    assert out is got
+    assert np.array_equal(planar(got.numpy()), ref)
+    # a permuted gather-scatter, as a blur chunk's out tiles land
+    perm = torch.tensor([3, 0, 6], dtype=torch.int32)
+    dst = torch.tensor([1, 20, 5], dtype=torch.int32)
+    batch_exec._pool_rows(got, torch.from_numpy(rows), perm, dst)
+    assert np.array_equal(got.numpy()[[1, 20, 5]], rows[[3, 0, 6]])
+
+
+@pytest.mark.parametrize("name", ["passes", "blurs"])
+def test_cli_png_matches_jax_cli(name, tmp_path, monkeypatch):
+    svg = tmp_path / "doc.svg"
+    svg.write_text(DOCS[name])
+    ref = _jax_png(str(svg), str(tmp_path / "jax.png"), monkeypatch)
+    assert torch_main([str(svg), str(tmp_path / "port.png"), "--device", "cpu"]) == 0
+    with open(tmp_path / "port.png", "rb") as f:
+        _assert_png_close(read_png(f.read()), ref)
+
+
+def _clip_builder():
+    return trp._Builder((0, 0, 64, 64), False, 16)
+
+
+def _clip_scene(r: float):
+    return torch_scene(
+        "<svg xmlns='http://www.w3.org/2000/svg' width='64' height='64'>"
+        f"<circle cx='30' cy='30' r='{r}'/></svg>"
+    )
+
+
+def test_clip_cache_keys_by_content():
+    """Content-equal clip scenes built as separate objects share one cache
+    entry; clips that differ in shape or transform do not."""
+    tr = TTransform().matrix(0, 1, 0, 1, 0, 0)
+    a, b, c = _clip_scene(20), _clip_scene(20), _clip_scene(21)
+    assert a is not b
+    builder = _clip_builder()
+    clips = [trp._Clip(s, t, trp._clip_key(s, t))
+             for s, t in ((a, tr), (b, tr), (c, tr), (a, tr.translate(1, 0)))]
+    assert clips[0].key == clips[1].key
+    assert len({clip.key for clip in clips}) == 3
+    fields = [builder._clip_tile(clip, 0, 1) for clip in clips]  # on the edge
+    assert len(builder.clip_flat_cache) == 3
+    assert isinstance(fields[0], np.ndarray) and fields[0] is fields[1]
+    assert not np.array_equal(fields[0], fields[2])
+
+
+_FE_IMAGE = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
+<defs><g id='frag'><circle cx='12' cy='12' r='10' fill='lime'/></g>
+<filter id='f'><feImage href='#frag' result='im'/>
+<feComposite in='im' in2='SourceGraphic' operator='over'/></filter></defs>
+<rect x='24' y='8' width='30' height='30' fill='blue' filter='url(#f)'/></svg>"""
+
+_PATTERN_IN_GROUP = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
+<defs><pattern id='p' width='8' height='8' patternUnits='userSpaceOnUse'>
+<rect width='4' height='4' fill='#d04020'/></pattern></defs>
+<g opacity='0.5'><rect x='4' y='4' width='50' height='30' fill='url(#p)'/>
+<circle cx='30' cy='24' r='12' fill='blue'/></g></svg>"""
+
+
+@pytest.mark.parametrize("svg", [_FE_IMAGE, _PATTERN_IN_GROUP], ids=["fe_image", "pattern"])
+def test_interpreter_features_still_raise(svg, tmp_path):
+    scene = torch_scene(svg)
+    tr = TTransform().matrix(0, 1, 0, 1, 0, 0)
+    vp = viewport_of(svg)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        trp.render_fast(scene, tr, vp, device="cpu")
+    path = tmp_path / "doc.svg"
+    path.write_text(svg)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        torch_main([str(path), str(tmp_path / "out.png"), "--device", "cpu"])
