@@ -6,18 +6,23 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the four hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
+It builds the five hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
 with nvcc (one process per source, in parallel), holds each against its
 plain PyTorch version on the card, then drives the port's main paths: the
 CLI renders a generated pass-free 1,536-draw document at 1488 x 1488 and a
 compiled scene of it serves 5 frames at 3840 x 3840; the CLI renders a
 generated document full of isolation passes (group opacity, masks, clips,
 filters) at 1488 x 1488, and a compiled stress document of 2,000 draws and
-opacity groups serves at 1024 x 1024.  Launch counts are set to 0 just
-before each path and read just after it.  Each phase prints one line; any
-failure exits non-zero.  The line before the last is a JSON object with
-per-kernel launches (summed over the paths), errors and times; the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+opacity groups serves at 1024 x 1024; the CLI renders, and a compiled scene
+serves, a 1488 x 1488 document of pattern fills and raster images; the CLI
+renders a 1488 x 1488 document the batched path cannot express through the
+interpreter (Scene.render, whose groups batch their lowerable runs), and
+one group of it alone with -id.  Launch counts are set to 0 just before
+each path and read just after it.  Each phase prints one line; any failure
+exits non-zero.  The line before the last is a JSON object with per-kernel
+launches (summed over the paths), errors, times and least-time bounds; the
+last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 
 Without a CUDA device it exits non-zero and prints no result.  It imports
 nothing of JAX.
@@ -38,6 +43,7 @@ import numpy as np
 PREPASS_TOL = 1e-4  # same f32 closed form; only the summation order differs
 SCENE_TOL = 1e-4  # per-pixel sums of the same terms in another order
 BLUR_TOL = 1e-5  # the same band products, summed in another order
+WINDING_TOL = 1e-4  # the prepass's closed form over a whole image, other order
 PNG_TOL = 1  # 8-bit steps: ~1e-6 differences at a .5 boundary flip one step
 
 CLI_SIZE = 1488
@@ -47,6 +53,25 @@ SERVE_FRAMES = 5
 PASS_DRAWS = 768
 STRESS_DRAWS = 2000
 STRESS_SIZE = 1024
+INTERP_DRAWS = 600
+PATTERN_GROUP = "pattern_group"  # the id the [interp_id] render draws
+
+# Least-time bounds (NVIDIA's H100 SXM data sheet, full 700 W power limit):
+# device memory rate and the f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# FP32 operations of winding.cuh's edge_contrib, split by what they depend
+# on, counting a division as one.  Per (edge, row) whose slab the edge
+# crosses, needed once whatever the width: the row clip lo / hi / dy 4, the
+# dy == 0 test 1, the two slab columns xs0 / xs1 6, sign * dy 1.  Per
+# (edge, pixel) pair: g0 / g1 2, den and its |den| test 3, two
+# antiderivatives 7, difference and division 2, times sign * dy 1, the sum 1.
+ROW_OPS = 12
+PAIR_OPS = 16
+# operations per (item, pixel) of the scene kernel after the winding:
+# coverage 2, clip 1, floor 1, opacity 1, OVER of four channels 9; paint is
+# not counted, so the bound stays a least time
+ITEM_PIXEL_OPS = 14
 
 
 # ----------------------------------------------------------------------------
@@ -303,6 +328,180 @@ def pass_doc(n_draws: int, size: int, seed: int) -> str:
     )
 
 
+def _png_data_uri(rng, h: int, w: int) -> str:
+    """A data: URI of an (h, w) RGBA PNG made from rng: smooth colour ramps,
+    noise and a soft alpha edge (straight alpha, as <image> payloads are)."""
+    import base64
+
+    from svgrasterize_tpu_torch.core.png import write_png
+
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    base = rng.uniform(0, 1, (3, 3))
+    rgb = np.stack([base[c, 0] * xx + base[c, 1] * yy + base[c, 2] for c in range(3)], -1)
+    rgb = np.clip(rgb / rgb.max() + rng.normal(0, 0.05, (h, w, 3)), 0, 1)
+    alpha = np.clip(4 * np.minimum(np.minimum(xx, 1 - xx), np.minimum(yy, 1 - yy)) + 0.2, 0, 1)
+    image = np.round(np.concatenate([rgb, alpha[..., None]], -1) * 255).astype(np.uint8)
+    return "data:image/png;base64," + base64.b64encode(write_png(image).getvalue()).decode()
+
+
+def interp_doc(n_draws: int, size: int, seed: int, kinds=None) -> str:
+    """A document that needs the interpreter, on a size x size canvas:
+    n_draws plain draws with, in between them, 24 <pattern> fills (half
+    userSpaceOnUse, half objectBoundingBox, some with
+    patternContentUnits='objectBoundingBox', some with a gradient inside
+    the tile), 8 <image> elements with seeded PNG data URIs (2 rotated, 2
+    downscaled, 2 upscaled), 6 gradients with color-interpolation='linearRGB',
+    2 gradients of 80 stops, 4 clip paths holding a stroke, and feImage
+    filters: 2 of a #fragment, 1 of a PNG data URI.  The linearRGB and
+    80-stop gradients and the stroked clips are what the batched path
+    cannot express, so render_fast returns None and Scene.render batches
+    the runs between them.  kinds: the special kinds to include (default
+    all of "pattern", "image", "linear_rgb", "stops80", "stroke_clip",
+    "fe_image").
+    """
+    kinds = set(kinds or ("pattern", "image", "linear_rgb", "stops80", "stroke_clip",
+                          "fe_image"))
+    rng = np.random.default_rng(seed)
+    s = size / 1488.0
+
+    def color():
+        return "#%02x%02x%02x" % tuple(int(v) for v in rng.integers(0, 256, 3))
+
+    def xy():
+        return rng.uniform(0.02, 0.9, 2) * size
+
+    def stops(k):
+        offs = np.sort(rng.uniform(0, 1, k))
+        offs[0], offs[-1] = 0.0, 1.0
+        return "".join(f"<stop offset='{o:.4f}' stop-color='{color()}'/>" for o in offs)
+
+    defs = []
+    for g in range(8):
+        defs.append(f"<linearGradient id='g{g}' x1='0' y1='0' x2='1' y2='{rng.uniform(0, 1):.2f}'>"
+                    f"{stops(3)}</linearGradient>")
+    for k in range(24):
+        units = "userSpaceOnUse" if k % 2 == 0 else "objectBoundingBox"
+        if units == "userSpaceOnUse":
+            pw, ph = rng.uniform(10, 40, 2) * s
+            geom = f"x='{rng.uniform(0, 20):.1f}' y='{rng.uniform(0, 20):.1f}' width='{pw:.1f}' height='{ph:.1f}'"
+        else:
+            pw, ph = rng.uniform(0.1, 0.35, 2)
+            geom = f"x='0' y='0' width='{pw:.3f}' height='{ph:.3f}'"
+        fill = f"url(#pg{k})" if k % 3 == 0 else color()
+        if k % 3 == 0:
+            defs.append(f"<radialGradient id='pg{k}'>{stops(3)}</radialGradient>")
+        if k % 4 == 1:  # content in bounding-box fractions
+            content = (f"<rect x='0' y='0' width='0.08' height='0.06' fill='{fill}'/>"
+                       f"<circle cx='0.1' cy='0.1' r='0.04' fill='{color()}'/>")
+            extra = " patternContentUnits='objectBoundingBox'"
+        else:
+            cw = (pw if units == "userSpaceOnUse" else 20.0 * s)
+            content = (f"<rect x='0' y='0' width='{0.6 * cw:.1f}' height='{0.5 * cw:.1f}' fill='{fill}'/>"
+                       f"<circle cx='{0.7 * cw:.1f}' cy='{0.7 * cw:.1f}' r='{0.25 * cw:.1f}'"
+                       f" fill='{color()}' fill-opacity='0.8'/>")
+            extra = ""
+        rot = f" patternTransform='rotate({rng.uniform(-30, 30):.1f})'" if k % 5 == 2 else ""
+        defs.append(f"<pattern id='p{k}' patternUnits='{units}' {geom}{extra}{rot}>"
+                    f"{content}</pattern>")
+    for k in range(6):
+        tag = "linearGradient" if k % 2 == 0 else "radialGradient"
+        defs.append(f"<{tag} id='lin{k}' color-interpolation='linearRGB'>{stops(4)}</{tag}>")
+    for k in range(2):
+        defs.append(f"<linearGradient id='many{k}' x1='0' y1='0' x2='1' y2='0.5'>"
+                    f"{stops(80)}</linearGradient>")
+    for k in range(4):
+        cx, cy = xy()
+        r = rng.uniform(40, 110) * s
+        defs.append(
+            f"<clipPath id='cs{k}'><path d='M{cx - r:.1f} {cy:.1f} Q{cx:.1f} {cy - 1.5 * r:.1f}"
+            f" {cx + r:.1f} {cy:.1f} T{cx - r:.1f} {cy + r / 2:.1f}' fill='none' stroke='black'"
+            f" stroke-width='{rng.uniform(10, 30) * s:.1f}'/>"
+            f"<circle cx='{cx:.1f}' cy='{cy:.1f}' r='{r / 3:.1f}'/></clipPath>"
+        )
+    for k in range(2):
+        fx, fy = xy()
+        r = rng.uniform(15, 50) * s
+        defs.append(f"<g id='frag{k}'><circle cx='{fx:.1f}' cy='{fy:.1f}' r='{r:.1f}'"
+                    f" fill='{color()}'/><rect x='{fx:.1f}' y='{fy:.1f}' width='{r:.1f}'"
+                    f" height='{r / 2:.1f}' fill='url(#g{k})'/></g>")
+        defs.append(f"<filter id='fi{k}'><feImage href='#frag{k}' result='im'/>"
+                    "<feComposite in='im' in2='SourceGraphic' operator='over'/></filter>")
+    fx, fy = xy()
+    defs.append(f"<filter id='fp'><feImage href='{_png_data_uri(rng, 24, 40)}' x='{fx:.1f}'"
+                f" y='{fy:.1f}' width='{90 * s:.1f}' height='{60 * s:.1f}' result='im'/>"
+                "<feComposite in='im' in2='SourceGraphic' operator='over'/></filter>")
+
+    def shape(extent, attrs):
+        x, y = xy()
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            return (f"<rect x='{x:.1f}' y='{y:.1f}' width='{extent:.1f}'"
+                    f" height='{extent * rng.uniform(0.4, 1.2):.1f}'{attrs}/>")
+        if kind == 1:
+            return f"<circle cx='{x:.1f}' cy='{y:.1f}' r='{extent / 2:.1f}'{attrs}/>"
+        pts = rng.uniform(0, extent, (3, 2)) + (x, y)
+        return (f"<path d='M{x:.1f} {y:.1f} Q{pts[0, 0]:.1f} {pts[0, 1]:.1f}"
+                f" {pts[1, 0]:.1f} {pts[1, 1]:.1f} T{pts[2, 0]:.1f} {pts[2, 1]:.1f} Z'{attrs}/>")
+
+    def draw():
+        paint = color() if rng.random() < 0.7 else f"url(#g{int(rng.integers(0, 8))})"
+        attrs = f" fill='{paint}'"
+        if rng.random() < 0.3:
+            attrs += f" fill-opacity='{rng.uniform(0.4, 1):.2f}'"
+        return shape(rng.uniform(8, 90) * s, attrs)
+
+    def image(k):
+        ih, iw = (int(v) for v in rng.integers(24, 64, 2))
+        scale = (1.0, 1.0, 0.5, 0.35, 2.5, 4.0, 1.3, 0.8)[k]
+        x, y = xy()
+        tr = f" transform='rotate({rng.uniform(10, 80):.1f} {x:.1f} {y:.1f})'" if k >= 6 else ""
+        return (f"<image x='{x:.1f}' y='{y:.1f}' width='{iw * scale * s:.1f}'"
+                f" height='{ih * scale * s:.1f}' href='{_png_data_uri(rng, ih, iw)}'{tr}/>")
+
+    specials = []
+    if "pattern" in kinds:
+        specials += [lambda k: shape(rng.uniform(60, 220) * s, f" fill='url(#p{k % 24})'")] * 24
+    if "image" in kinds:
+        specials += [lambda k: image(k % 8)] * 8
+    if "linear_rgb" in kinds:
+        specials += [lambda k: shape(rng.uniform(60, 200) * s, f" fill='url(#lin{k % 6})'")] * 6
+    if "stops80" in kinds:
+        specials += [lambda k: shape(rng.uniform(100, 300) * s, f" fill='url(#many{k % 2})'")] * 2
+    if "stroke_clip" in kinds:
+        specials += [lambda k: f"<g clip-path='url(#cs{k % 4})'>{draw()}"
+                               f"{shape(rng.uniform(80, 240) * s, f' fill={chr(39)}{color()}{chr(39)}')}"
+                               "</g>"] * 4
+    if "fe_image" in kinds:
+        specials += [lambda k: shape(rng.uniform(30, 90) * s, f" fill='{color()}' filter='url(#fi{k % 2})'")] * 2
+        specials += [lambda k: shape(rng.uniform(30, 90) * s, f" fill='{color()}' filter='url(#fp)'")]
+    order = rng.permutation(len(specials))
+    every = max(1, n_draws // max(len(specials), 1))
+    body = []
+    k = 0
+    for i in range(n_draws):
+        body.append(draw())
+        if i % every == every - 1 and k < len(specials):
+            body.append(specials[order[k]](int(order[k])))
+            k += 1
+    body.extend(specials[order[j]](int(order[j])) for j in range(k, len(specials)))
+    if "pattern" in kinds:  # the group an --id render draws
+        body.append(f"<g id='{PATTERN_GROUP}'>"
+                    + "".join(shape(rng.uniform(80, 200) * s, f" fill='url(#p{k})'")
+                              for k in (0, 1, 4))
+                    + "</g>")
+    return (
+        f"<svg xmlns='http://www.w3.org/2000/svg' width='{size}' height='{size}'"
+        f" viewBox='0 0 {size} {size}'><defs>{''.join(defs)}</defs>"
+        + "".join(body) + "</svg>"
+    )
+
+
+def pattern_doc(n_draws: int, size: int, seed: int) -> str:
+    """interp_doc restricted to its pattern fills and images: the batched
+    path lowers it whole."""
+    return interp_doc(n_draws, size, seed, kinds=("pattern", "image"))
+
+
 # ----------------------------------------------------------------------------
 # helpers
 # ----------------------------------------------------------------------------
@@ -354,6 +553,144 @@ def _launches() -> dict:
     from svgrasterize_tpu_torch.ops import fused_exec
 
     return {k.__name__: k.launches for k in fused_exec.KERNELS}
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time of a kernel's work: its bytes (each input read once,
+    each output written once) over the memory rate against its FP32
+    operations over the FP32 rate; the larger one bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _live_edges(edges) -> int:
+    """Edges of edges (..., 4) that can contribute: not horizontal and not
+    padding (a zero row is horizontal)."""
+    return int((edges[..., 0] != edges[..., 2]).sum())
+
+
+def _winding_ops(edges, height: int, width: int) -> int:
+    """FP32 operations a winding field of edges (..., 4) needs: ROW_OPS for
+    each live edge and each row in [0, height) whose slab it crosses, and
+    PAIR_OPS for each such (edge, row) times every pixel of the row."""
+    import torch
+
+    y_lo = torch.minimum(edges[..., 0], edges[..., 2])
+    y_hi = torch.maximum(edges[..., 0], edges[..., 2])
+    rows = (torch.clamp(torch.ceil(y_hi), 0, height)
+            - torch.clamp(torch.floor(y_lo), 0, height)).clamp(min=0)
+    live = edges[..., 0] != edges[..., 2]
+    edge_rows = int((rows * live).sum())
+    return edge_rows * (ROW_OPS + PAIR_OPS * width)
+
+
+def _scene_bound(plan, big, pool=None) -> dict:
+    """Bound of one scene-kernel launch on a plan.  Bytes: the live items'
+    parameters, carries and live inline edges, the stop tables of their
+    gradient items, each prepass / clip / field / pool row some live item
+    names, at most one atlas texel per pattern-item pixel (never more than
+    the atlas), read once; the tiles written once.  Operations: the inline
+    winding of the live items plus ITEM_PIXEL_OPS per item pixel."""
+    import torch
+
+    from svgrasterize_tpu_torch.ops import batch_exec as be
+
+    t = plan.tile
+    live = plan.tile_id < plan.num_tiles
+    n_live = int(live.sum())
+    ip = plan.iparams[live]
+    kind = ip[:, be.I_KIND]
+    per_item = (plan.carry, plan.tile_id, plan.iparams, plan.fparams)
+    nbytes = n_live * sum(x[0].numel() * x.element_size() for x in per_item)
+    nbytes += _live_edges(plan.lines[live]) * 16
+    n_grad = int(((kind == be.PAINT_LINEAR) | (kind == be.PAINT_RADIAL)).sum())
+    nbytes += n_grad * (plan.stop_offsets[0].numel() + plan.stop_colors[0].numel()) * 4
+
+    def rows_named(cols, table, px_bytes):
+        if table is None:
+            return 0
+        idx = ip[:, cols].reshape(-1)
+        return torch.unique(idx[idx >= 0]).numel() * t * t * px_bytes
+
+    nbytes += rows_named([be.I_BIG], big, 4) + rows_named([be.I_CLIP], plan.clips, 4)
+    nbytes += rows_named([be.I_FIELD], plan.field, 16)
+    nbytes += rows_named([be.I_TEX, be.I_MASK], pool, 16)
+    if plan.patterns is not None:
+        n_pat = int((kind == be.PAINT_PATTERN).sum())
+        atlas = plan.patterns.numel() * plan.patterns.element_size()
+        nbytes += min(atlas, n_pat * t * t * 16)
+    nbytes += plan.num_tiles * t * t * 16
+    ops = _winding_ops(plan.lines[live], t, t) + ITEM_PIXEL_OPS * n_live * t * t
+    return _bound(nbytes, ops)
+
+
+def _chunk_bound(chunks, t: int) -> dict:
+    """Bound of the blur-chunk launches of a level: the canvas rows each
+    chunk reads, its band operators and its out tiles, against the multiply
+    -adds of O = BH @ X @ BW^T over the operators' nonzero entries, four
+    channels."""
+    import torch
+
+    nbytes = ops = 0
+    for ck in chunks:
+        rows = torch.unique(ck["lut"][ck["lut"] >= 0]).numel()
+        n_out = ck["B"] * ck["NOi"] * ck["NOj"]
+        nbytes += (rows + n_out) * t * t * 16 + 4 * int(
+            (ck["bh"] != 0).sum() + (ck["bw"] != 0).sum())
+        for b in range(ck["B"]):
+            ops += 8 * (int((ck["bh"][b] != 0).sum()) * ck["NSj"] * t
+                        + int((ck["bw"][b] != 0).sum()) * ck["NOi"] * t)
+    return _bound(nbytes, ops)
+
+
+def _winding_bound(calls) -> dict:
+    """Bound of whole-image winding launches: the live edges of each list
+    read once and each field written once, against _winding_ops."""
+    nbytes = sum(_live_edges(lines) * 16 + h * w * 4 for lines, h, w in calls)
+    ops = sum(_winding_ops(lines, h, w) for lines, h, w in calls)
+    return _bound(nbytes, ops)
+
+
+class _Recorder:
+    """Wraps a module function for the span of a with-block: records each
+    call's arguments (record=True) and/or its synchronised wall time (outer
+    calls only).  Used to collect the interpreter's winding inputs and to
+    split a render's time; the wrapped function runs unchanged."""
+
+    def __init__(self, module, name: str, record: bool = False):
+        self.module, self.name, self.record = module, name, record
+        self.calls, self.seconds, self._depth = [], 0.0, 0
+
+    def __enter__(self):
+        import torch
+
+        fn = self.fn = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            if self.record:
+                self.calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                        for a in args))
+            self._depth += 1
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self._depth -= 1
+                if self._depth == 0:
+                    self.seconds += time.monotonic() - t0
+
+        # a kernel wrapper counts its launches on the function its module
+        # name resolves to, which is this one while the block runs; those
+        # launches are not a main path's and are not kept
+        wrapped.__dict__.update(fn.__dict__)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
 
 
 def _random_chunk(torch, rng, t: int, dev):
@@ -566,7 +903,11 @@ def main() -> int:
             raise RuntimeError(f"prepass kernel disagrees on the plan: {err}")
         ms = _time_ms(torch, lambda: fused_exec.prepass_winding(plan.bigs, 32), 20)
         plain_ms = _time_ms(torch, lambda: batch_exec._prepass_winding(plan.bigs, 32), 5)
-        results["prepass_winding"] = dict(max_abs_err=max(err, worst), ms=ms, plain_ms=plain_ms)
+        nbytes = sum(_live_edges(b) * 16 for b in plan.bigs) + (
+            sum(b.shape[0] for b in plan.bigs) + 1) * 32 * 32 * 4
+        ops = sum(_winding_ops(b, 32, 32) for b in plan.bigs)
+        results["prepass_winding"] = dict(max_abs_err=max(err, worst), ms=ms, plain_ms=plain_ms,
+                                          **_bound(nbytes, ops), library_ms=None)
         _say("prepass", (
             f"plan bigs: max abs diff {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
         ))
@@ -581,7 +922,8 @@ def main() -> int:
             raise RuntimeError(f"scene kernel disagrees: {err} > {SCENE_TOL}")
         ms = _time_ms(torch, lambda: fused_exec.scene_tiles(plan, big), 20)
         plain_ms = _time_ms(torch, lambda: batch_exec._scene_tiles(plan, big), 3)
-        results["scene_tiles"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results["scene_tiles"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      **_scene_bound(plan, big), library_ms=None)
         _say("scene", f"max abs diff {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         plain_png = _png_pixels(batch_exec.execute_items(plan), low_cli, vp_cli)
         _say("layers", _layer_breakdown(torch, doc, dev))
@@ -733,7 +1075,8 @@ def main() -> int:
 
         ms = _time_ms(torch, lambda: all_chunks(fused_exec.blur_chunk), 20)
         plain_ms = _time_ms(torch, lambda: all_chunks(filter_batch.apply_chunk), 5)
-        results["blur_chunk"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+        results["blur_chunk"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                     **_chunk_bound(lvl_chunks, 32), library_ms=None)
         _say("blur_chunk", (
             f"document chunks: max abs diff {doc_err:.3g}; random chunks T=32,64:"
             f" worst {worst:.3g}; level 0's {len(lvl_chunks)} chunks"
@@ -756,10 +1099,21 @@ def main() -> int:
             raise RuntimeError("pool row kernel differs from plain")
         ms = _time_ms(torch, lambda: fused_exec.pool_rows(pool_k, src_all, src_idx, dst_idx), 50)
         plain_ms = _time_ms(torch, lambda: batch_exec._pool_rows(pool_p, src_all, src_idx, dst_idx), 50)
-        results["pool_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+        # the one PyTorch call that computes the same function (a yardstick)
+        pool_l, src_l, dst_l = new_pool(prog), src_idx.long(), dst_idx.long()
+
+        def library():
+            pool_l[dst_l] = src_all[src_l]
+
+        library_ms = _time_ms(torch, library, 50)
+        n_written = dst_idx.shape[0]
+        results["pool_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                    **_bound(2 * n_written * 32 * 32 * 16, 0),
+                                    library_ms=library_ms)
         _say("pool_rows", (
-            f"{dst_idx.shape[0]} rows of T=32 into a {prog.pool_rows}-row pool: equal;"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"{n_written} rows of T=32 into a {prog.pool_rows}-row pool: equal;"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, pool[dst] = src[idx]"
+            f" {library_ms:.4f} ms"
         ))
 
         # 10. CLI, isolation-pass document (a main path)
@@ -829,15 +1183,221 @@ def main() -> int:
             f" {path_launches['serve_passes']}"
         ))
 
+        # 12. the interpreter document: the batched path cannot express it
+        from svgrasterize_tpu_torch import render_plan
+        from svgrasterize_tpu_torch.ops import coverage
+
+        idoc = os.path.join(tmp, "interp.svg")
+        with open(idoc, "w", encoding="utf-8") as f:
+            f.write(interp_doc(INTERP_DRAWS, CLI_SIZE, seed=0))
+        t0 = time.monotonic()
+        scene, _ids, (w, h) = scene_from_filepath(idoc, None, None, fonts)
+        parse_s = time.monotonic() - t0
+        vp_i = (0, 0, int(h), int(w))
+        swap = Transform().matrix(0, 1, 0, 1, 0, 0)
+        if render_plan.lower_scene(scene, swap, vp_i, False, 32, device=dev) is not None:
+            raise RuntimeError("the interpreter document must not lower whole")
+
+        # 13. winding kernel against plain: every mask of one interpreter
+        # render, then random edge lists
+        with _Recorder(fused_exec, "winding", record=True) as rec:
+            scene.render(swap, viewport=vp_i, device=dev)
+        calls = rec.calls
+        if not calls:
+            raise RuntimeError("the interpreter render rasterized no path mask")
+        worst = 0.0
+        for lines, hh, ww in calls:
+            got = fused_exec.winding(lines, hh, ww)
+            ref = coverage.winding(lines, hh, ww)
+            torch.cuda.synchronize()
+            worst = max(worst, float((got - ref).abs().max()))
+        if not worst <= WINDING_TOL:
+            raise RuntimeError(f"winding kernel disagrees on the render's masks: {worst}")
+
+        def all_masks(fn):
+            for lines, hh, ww in calls:
+                fn(lines, hh, ww)
+
+        ms = _time_ms(torch, lambda: all_masks(fused_exec.winding), 10)
+        plain_ms = _time_ms(torch, lambda: all_masks(coverage.winding), 2)
+        sizes = sorted(hh * ww for _l, hh, ww in calls)
+        edges = sorted(lines.shape[0] for lines, _h, _w in calls)
+        results["winding"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                  **_winding_bound(calls), library_ms=None)
+        _say("winding", (
+            f"{len(calls)} masks of one interpreter render (pixels median"
+            f" {sizes[len(sizes) // 2]}, max {sizes[-1]}; edges median"
+            f" {edges[len(edges) // 2]}, max {edges[-1]}): max abs diff {worst:.3g};"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound"
+            f" {results['winding']['bound_ms']:.4f} ms ({results['winding']['bound_by']})"
+        ))
+        rng = np.random.default_rng(4)
+        for segs, hh, ww in ((16, 200, 300), (256, 513, 777), (2048, 1024, 1024)):
+            e = rng.uniform(-8, max(hh, ww) + 8, (segs, 4)).astype(np.float32)
+            e[::9, 2] = e[::9, 0]  # horizontal edges
+            e[::13] = 0.0  # padding rows
+            lines = torch.from_numpy(e).to(dev)
+            got = fused_exec.winding(lines, hh, ww)
+            ref = coverage.winding(lines, hh, ww)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not bool(torch.isfinite(got).all()) or not err <= WINDING_TOL:
+                raise RuntimeError(f"winding kernel disagrees at S={segs}: {err}")
+            results["winding"]["max_abs_err"] = max(results["winding"]["max_abs_err"], err)
+            k_ms = _time_ms(torch, lambda: fused_exec.winding(lines, hh, ww), 10)
+            p_ms = _time_ms(torch, lambda: coverage.winding(lines, hh, ww), 2)
+            b = _winding_bound([(lines, hh, ww)])
+            _say("winding", (
+                f"random S={segs} {hh}x{ww}: max abs diff {err:.3g}; kernel {k_ms:.4f} ms,"
+                f" plain {p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+            ))
+
+        # 14. pattern paints and images, which lower whole: the scene kernel
+        # with pattern items against plain, the CLI and serving (main paths)
+        tdoc = os.path.join(tmp, "patterns.svg")
+        with open(tdoc, "w", encoding="utf-8") as f:
+            f.write(pattern_doc(INTERP_DRAWS, CLI_SIZE, seed=0))
+        vp_t, low_t, seconds_t = _lower(tdoc, None, 32)
+        tplan = plan_from_lowered(low_t, dev)
+        n_pat = int((tplan.iparams[:, batch_exec.I_KIND] == batch_exec.PAINT_PATTERN).sum())
+        if tplan.patterns is None or not n_pat:
+            raise RuntimeError("the pattern document lowered no pattern item")
+        big = fused_exec.prepass_winding(tplan.bigs, tplan.tile)
+        got = fused_exec.scene_tiles(tplan, big)
+        ref = batch_exec._scene_tiles(tplan, big)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not bool(torch.isfinite(got).all()) or not err <= SCENE_TOL:
+            raise RuntimeError(f"scene kernel disagrees on pattern items: {err}")
+        results["scene_tiles"]["max_abs_err"] = max(results["scene_tiles"]["max_abs_err"], err)
+        ms = _time_ms(torch, lambda: fused_exec.scene_tiles(tplan, big), 20)
+        plain_ms = _time_ms(torch, lambda: batch_exec._scene_tiles(tplan, big), 3)
+        b = _scene_bound(tplan, big)
+        _say("scene", (
+            f"patterns {CLI_SIZE}^2 ({n_pat} pattern items, atlas"
+            f" {tuple(tplan.patterns.shape)}, lowered in {seconds_t['lower']:.2f}s): max abs"
+            f" diff {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound"
+            f" {b['bound_ms']:.4f} ms ({b['bound_by']})"
+        ))
+        pat_plain_png = _png_pixels(batch_exec.execute_items(tplan), low_t, vp_t)
+        fused_exec.reset_launch_counts()
+        out_png = os.path.join(tmp, "patterns.png")
+        t0 = time.monotonic()
+        rc = cli.main([tdoc, out_png])
+        tcli_s = time.monotonic() - t0
+        path_launches["patterns"] = _launches()
+        if rc != 0:
+            raise RuntimeError(f"CLI exited {rc} on the pattern document")
+        with open(out_png, "rb") as f:
+            img = read_png(f.read())
+        if img.shape != (CLI_SIZE, CLI_SIZE, 4) or int(img[..., 3].max()) == 0:
+            raise RuntimeError(f"pattern document CLI image {img.shape} is wrong or blank")
+        diff = np.abs(img.astype(np.int16) - pat_plain_png.astype(np.int16))
+        if int(diff.max()) > PNG_TOL:
+            raise RuntimeError(f"pattern CLI PNG differs from the plain render by {diff.max()}/255")
+        missed = [k for k in ("scene_tiles", "winding") if path_launches["patterns"][k] == 0]
+        if missed:
+            raise RuntimeError(f"pattern CLI did not launch {missed}: {path_launches['patterns']}")
+        scene_t, _ids, _size = scene_from_filepath(tdoc, None, None, fonts)
+        cs = compile_scene(scene_t, swap, vp_t, tile=32, device=dev)
+        fused_exec.reset_launch_counts()
+        first = cs.render_tiles()
+        frame_ms = _time_ms(torch, cs.render_tiles, SERVE_FRAMES)
+        last = cs.render_tiles()
+        torch.cuda.synchronize()
+        path_launches["serve_patterns"] = _launches()
+        if not torch.equal(first, last) or path_launches["serve_patterns"]["scene_tiles"] == 0:
+            raise RuntimeError("pattern serving frames differ or missed the scene kernel")
+        plain_frame_ms = _time_ms(torch, lambda: cs.render_tiles(plain=True), 2)
+        serve_err = float((last - cs.render_tiles(plain=True)).abs().max())
+        if not serve_err <= SCENE_TOL:
+            raise RuntimeError(f"pattern serving disagrees with plain: {serve_err}")
+        _say("patterns", (
+            f"{CLI_SIZE}x{CLI_SIZE} CLI PNG in {tcli_s:.3f}s; max diff vs plain"
+            f" {int(diff.max())}/255; launches {path_launches['patterns']}; serving"
+            f" {frame_ms:.3f} ms/frame, plain {plain_frame_ms:.3f} ms/frame, max abs diff"
+            f" {serve_err:.3g}; launches {path_launches['serve_patterns']}"
+        ))
+
+        # 15. the interpreter document through the CLI (a main path), held
+        # against the same CLI on the CPU (the plain versions throughout)
+        fused_exec.reset_launch_counts()
+        out_png = os.path.join(tmp, "interp.png")
+        t0 = time.monotonic()
+        rc = cli.main([idoc, out_png])
+        icli_s = time.monotonic() - t0
+        path_launches["interp"] = _launches()
+        cpu_png = os.path.join(tmp, "interp_cpu.png")
+        t0 = time.monotonic()
+        rc_cpu = cli.main([idoc, cpu_png, "--device", "cpu"])
+        cpu_s = time.monotonic() - t0
+        if rc != 0 or rc_cpu != 0:
+            raise RuntimeError(f"CLI exited {rc} (cuda), {rc_cpu} (cpu) on the interpreter document")
+        with open(out_png, "rb") as f:
+            img = read_png(f.read())
+        with open(cpu_png, "rb") as f:
+            ref_img = read_png(f.read())
+        if img.shape != (CLI_SIZE, CLI_SIZE, 4) or int(img[..., 3].max()) == 0:
+            raise RuntimeError(f"interpreter CLI image {img.shape} is wrong or blank")
+        diff = np.abs(img.astype(np.int16) - ref_img.astype(np.int16))
+        if int(diff.max()) > PNG_TOL:
+            raise RuntimeError(f"interpreter CLI PNG differs from the CPU render by {diff.max()}/255")
+        missed = [k for k in ("scene_tiles", "winding") if path_launches["interp"][k] == 0]
+        if missed:
+            raise RuntimeError(f"interpreter CLI did not launch {missed}: {path_launches['interp']}")
+        # where one render's time goes: the batched group runs (their
+        # lowering, pattern tiles and kernels) and the interpreter's own paths
+        with _Recorder(render_plan, "render_fast") as runs:
+            t0 = time.monotonic()
+            layer, _hull = scene.render(swap, viewport=vp_i, device=dev)
+            torch.cuda.synchronize()
+            render_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        layer.convert(pre_alpha=True, linear_rgb=False).write_png(io.BytesIO())
+        png_s = time.monotonic() - t0
+        _say("interp", (
+            f"{CLI_SIZE}x{CLI_SIZE} CLI PNG in {icli_s:.3f}s (cuda), {cpu_s:.3f}s (cpu);"
+            f" max diff {int(diff.max())}/255, {float((diff == 0).mean()) * 100:.4f}% bytes"
+            f" equal; launches {path_launches['interp']}; one render: parse"
+            f" {parse_s:.4f}s, group runs (render_fast) {runs.seconds:.4f}s, interpreter"
+            f" paths {render_s - runs.seconds:.4f}s, PNG {png_s:.4f}s"
+        ))
+
+        # 16. --id: a pattern-filled group alone, no viewport (pure interpreter)
+        fused_exec.reset_launch_counts()
+        out_png = os.path.join(tmp, "id.png")
+        t0 = time.monotonic()
+        rc = cli.main([idoc, out_png, "-id", PATTERN_GROUP])
+        id_s = time.monotonic() - t0
+        path_launches["interp_id"] = _launches()
+        rc_cpu = cli.main([idoc, cpu_png, "-id", PATTERN_GROUP, "--device", "cpu"])
+        if rc != 0 or rc_cpu != 0:
+            raise RuntimeError(f"--id CLI exited {rc} (cuda), {rc_cpu} (cpu)")
+        with open(out_png, "rb") as f:
+            img = read_png(f.read())
+        with open(cpu_png, "rb") as f:
+            ref_img = read_png(f.read())
+        if img.shape != ref_img.shape or int(img[..., 3].max()) == 0:
+            raise RuntimeError(f"--id image {img.shape} is blank or not {ref_img.shape}")
+        diff = np.abs(img.astype(np.int16) - ref_img.astype(np.int16))
+        if int(diff.max()) > PNG_TOL or path_launches["interp_id"]["winding"] == 0:
+            raise RuntimeError(f"--id render differs by {diff.max()}/255 or launched no"
+                               f" winding: {path_launches['interp_id']}")
+        _say("interp_id", (
+            f"-id {PATTERN_GROUP}: {img.shape[1]}x{img.shape[0]} PNG in {id_s:.3f}s; max diff"
+            f" vs cpu {int(diff.max())}/255; launches {path_launches['interp_id']}"
+        ))
+
     launches = {
         k: sum(counts[k] for counts in path_launches.values())
-        for k in ("prepass_winding", "scene_tiles", "blur_chunk", "pool_rows")
+        for k in ("prepass_winding", "scene_tiles", "blur_chunk", "pool_rows", "winding")
     }
     sources = {
         "prepass_winding": ("prepass.cu", "svgrasterize_tpu/ops/fused_exec.py:443"),
         "scene_tiles": ("scene.cu", "svgrasterize_tpu/ops/fused_exec.py:853"),
         "blur_chunk": ("blur_chunk.cu", "svgrasterize_tpu/ops/filter_batch.py:396"),
         "pool_rows": ("pool_rows.cu", "svgrasterize_tpu/render_plan.py:2092"),
+        "winding": ("winding.cu", "svgrasterize_tpu/ops/pallas_coverage.py:36"),
     }
     kernels = [
         dict(name=name, route="cuda", source=f"svgrasterize_tpu_torch/csrc/{src}",

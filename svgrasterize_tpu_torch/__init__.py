@@ -1,9 +1,12 @@
 """svgrasterize_tpu_torch: the PyTorch / CUDA port of svgrasterize_tpu.
 
-The single-pass render path (SVG -> scene -> host lowering -> device
-executor -> PNG) runs on a CUDA card through two hand-written kernels
+The batched render path (SVG -> scene -> host lowering -> device executor
+-> PNG, isolation passes and pattern paints included) and the interpreter
+(Scene.render, which batches its lowerable group runs through the batched
+path) run on a CUDA card through five hand-written kernels
 (ops/fused_exec.py, csrc/), and on the CPU through their plain PyTorch
-versions (ops/batch_exec.py).  The package imports torch and never jax.
+versions (ops/batch_exec.py, ops/filter_batch.py, ops/coverage.py).  The
+package imports torch and never jax.
 """
 
 from .core.transform import Transform

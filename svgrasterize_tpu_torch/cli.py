@@ -3,10 +3,11 @@
 Flag-compatible with the JAX package's CLI (positional svg/output, -bg/-fg
 colors, -w width, -id element, -t extra transform, --linear-rgb, --fonts,
 --as-path, --profile); its --platform becomes --device (default cuda).
-Renders go through the batched path (render_plan.render_fast), isolation
-passes (group opacity, masks, clips, filters) included; a document that
-needs the interpreter (pattern paints, raster images, feImage, no document
-size) raises NotImplementedError naming ROADMAP queue 1 item 7.
+Routing is the JAX CLI's: a sized document goes through the batched path
+(render_plan.render_fast); when that cannot express the scene, through the
+interpreter (Scene.render with the viewport, whose groups batch their
+lowerable runs); a document without a size, a raw .path file and --id
+render through the interpreter alone.  The result merges onto the canvas.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ from .core.transform import Transform
 from .frontend.parsers import parse_color, parse_transform
 from .frontend.svg import scene_from_filepath
 from .geom.path import Path
-from .render_plan import DEFAULT_TILE, render_fast
+from .render_plan import render_fast
 from .scene import Scene
 from .text.fonts import DEFAULT_FONTS, FontsDB
+from .utils.constants import DEFAULT_TILE
 
 
 def main(argv=None) -> int:
@@ -116,26 +118,18 @@ def main(argv=None) -> int:
                 file.write(data)
         return 0
 
-    if size is None:
-        # no document size: the JAX CLI renders through the interpreter
-        raise NotImplementedError(
-            "rendering without a document size needs the interpreter "
-            "(ROADMAP queue 1 item 7)"
-        )
-
     start = time.monotonic()
-    w, h = size
-    viewport = (0, 0, int(h), int(w))
-    result = render_fast(
-        scene, transform, viewport, linear_rgb=opts.linear_rgb,
-        tile=DEFAULT_TILE, device=device,
-    )
-    if result is None:
-        raise NotImplementedError(
-            "this document needs the interpreter fallback "
-            "(ROADMAP queue 1 item 7)"
-        )
-    layer, _hull = result
+    sub = dict(linear_rgb=opts.linear_rgb, tile=DEFAULT_TILE, device=device)
+    if size is not None:
+        w, h = size
+        viewport = (0, 0, int(h), int(w))
+        # whole-scene batched path when the scene lowers; otherwise the
+        # interpreter batches lowerable group runs internally
+        result = render_fast(scene, transform, viewport, **sub)
+        if result is None:
+            result = scene.render(transform, viewport=viewport, **sub)
+    else:
+        result = scene.render(transform, **sub)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.monotonic() - start
@@ -144,10 +138,16 @@ def main(argv=None) -> int:
         sys.stderr.write(f"[info] parse {t_parse:.2f}s render {elapsed:.2f}s\n")
     sys.stderr.flush()
 
-    layer = layer.convert(pre_alpha=True, linear_rgb=opts.linear_rgb)
-    canvas = torch.zeros((int(h), int(w), 4), dtype=torch.float32, device=device)
-    canvas = merge_at(canvas, layer.image, layer.offset)
-    layer = Layer(canvas, (0, 0), pre_alpha=True, linear_rgb=opts.linear_rgb)
+    if result is None:
+        sys.stderr.write("[error] nothing to render\n")
+        return 1
+    layer, _hull = result
+
+    if size is not None:
+        layer = layer.convert(pre_alpha=True, linear_rgb=opts.linear_rgb)
+        canvas = torch.zeros((int(h), int(w), 4), dtype=torch.float32, device=device)
+        canvas = merge_at(canvas, layer.image, layer.offset)
+        layer = Layer(canvas, (0, 0), pre_alpha=True, linear_rgb=opts.linear_rgb)
 
     if opts.bg is not None:
         layer = layer.background(opts.bg)

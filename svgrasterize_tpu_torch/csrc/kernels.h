@@ -10,7 +10,7 @@
 #include <cuda_runtime.h>
 
 // Packed per-item parameter columns; must match ops/batch_exec.py.
-#define SVGR_N_IPARAMS 8
+#define SVGR_N_IPARAMS 13
 #define SVGR_I_KIND 0
 #define SVGR_I_RULE 1
 #define SVGR_I_SPREAD 2
@@ -19,8 +19,11 @@
 #define SVGR_I_FIELD 5
 #define SVGR_I_TEX 6
 #define SVGR_I_MASK 7
+#define SVGR_I_PAT 8
+#define SVGR_I_PAT_LO 9    // 2 columns
+#define SVGR_I_PAT_MAX 11  // 2 columns
 
-#define SVGR_N_FPARAMS 24
+#define SVGR_N_FPARAMS 34
 #define SVGR_F_OPACITY 0
 #define SVGR_F_TILE_R 1
 #define SVGR_F_TILE_C 2
@@ -32,11 +35,15 @@
 #define SVGR_F_FCENTER 19
 #define SVGR_F_RADIUS 21
 #define SVGR_F_FRADIUS 22
+#define SVGR_F_PAT_FWD 24  // 6 columns, row-major 2x3
+#define SVGR_F_PAT_XY 30
+#define SVGR_F_PAT_WH 32
 
 // paint kinds (render_plan PAINT_*)
 #define SVGR_PAINT_SOLID 0
 #define SVGR_PAINT_LINEAR 1
 #define SVGR_PAINT_RADIAL 2
+#define SVGR_PAINT_PATTERN 3
 
 // inline edges and gradient stops an item may carry (SMALL_SEGS, MAX_STOPS)
 #define SVGR_MAX_SEGS 64
@@ -58,8 +65,10 @@ int svgr_prepass_winding(const float* edges, float* out, int rows, int width,
 //   items at num_tiles, iparams (n, SVGR_N_IPARAMS), fparams
 //   (n, SVGR_N_FPARAMS), stop_off (n, k_stops), stop_col (n, k_stops, 4);
 //   big_wind (B, tile, tile), clips (U, tile, tile), field
-//   (F, tile, tile, 4) and pool (P, tile, tile, 4) may be null when no item
-//   references them (pool rows are read by texture and mask items).
+//   (F, tile, tile, 4), pool (P, tile, tile, 4) and the pattern-tile atlas
+//   patterns (Q, pat_h, pat_w, 4) may be null when no item references them
+//   (pool rows are read by texture and mask items, atlas tiles by pattern
+//   items).
 //   out: (num_tiles, tile, tile, 4) f32; tiles without items are zero.
 // tile is 16, 32 or 64; segs <= SVGR_MAX_SEGS; k_stops <= SVGR_MAX_STOPS.
 int svgr_scene_tiles(const float* lines, int segs, const float* carry,
@@ -67,8 +76,15 @@ int svgr_scene_tiles(const float* lines, int segs, const float* carry,
                      const float* fparams, const float* stop_off,
                      const float* stop_col, int k_stops,
                      const float* big_wind, const float* clips,
-                     const float* field, const float* pool, float* out,
+                     const float* field, const float* pool,
+                     const float* patterns, int pat_h, int pat_w, float* out,
                      int num_tiles, int tile, cudaStream_t stream);
+
+// Winding field of one padded edge list over a whole image.
+//   edges: (segs, 4) f32 (a0, a1, b0, b1) in image pixel coordinates;
+//   out:   (height, width) f32.
+int svgr_winding(const float* edges, int segs, float* out, int height,
+                 int width, cudaStream_t stream);
 
 // Every out-span tile of a chunk of lone separable-blur filter parts.
 //   canvas (rows, tile, tile, 4) f32 premultiplied pass rows;

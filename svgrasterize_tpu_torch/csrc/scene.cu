@@ -13,11 +13,15 @@
 //   winding = inline edges (or the item's big-class prepass row) + carry;
 //   coverage by fill rule; x clip field; zeroed below 1e-6; x opacity;
 //   x the luminance of a pool row (mask items, mask_idx >= 0);
-//   paint (solid, linear, radial; a pool row for texture items,
+//   paint (solid, linear, radial, or a pattern: the modular gather from
+//   the plan's pattern-tile atlas; a pool row for texture items,
 //   tex_idx >= 0; a collapsed-run field overrides last);
 //   acc = rgba + acc * (1 - rgba.a).
 // The 1e-6 floor comes before the opacity, as in batch_exec.py; the TPU
-// kernel applies it after.
+// kernel applies it after.  The TPU path precomputes a (T, T, 4) field
+// per pattern item before its kernel runs (TPU scheduling); here the
+// pattern item's gather index is computed at each pixel from its
+// parameters, in the operation order of batch_exec._paint_item.
 //
 // What bounds it on the H100: arithmetic in the inline winding (up to 64
 // edges x T^2 pixels per item, ~25 FP32 operations per pair) and in the
@@ -124,6 +128,29 @@ __device__ float4 gradient_paint(int kind, int spread, const float* fp,
   return g;
 }
 
+// Pattern paint at pixel (row, col) of the item's tile: device pixel ->
+// pattern user space (the item's affine) -> the modular cell -> atlas
+// pixels (pat_fwd), truncated toward zero and clamped to the tile.
+__device__ float4 pattern_paint(const float* fp, const int* ip, int row,
+                                int col, const float4* __restrict__ atlas,
+                                int pat_h, int pat_w) {
+  const float rr = ((float)row + fp[SVGR_F_TILE_R]) + 0.5f;
+  const float cc = ((float)col + fp[SVGR_F_TILE_C]) + 0.5f;
+  const float* m = fp + SVGR_F_AFFINE;
+  const float gx = rr * m[0] + cc * m[1] + m[2];
+  const float gy = rr * m[3] + cc * m[4] + m[5];
+  const float q0 = py_remainder(gx - fp[SVGR_F_PAT_XY], fp[SVGR_F_PAT_WH]);
+  const float q1 =
+      py_remainder(gy - fp[SVGR_F_PAT_XY + 1], fp[SVGR_F_PAT_WH + 1]);
+  const float* f = fp + SVGR_F_PAT_FWD;
+  const float s0 = q0 * f[0] + q1 * f[1] + f[2];
+  const float s1 = q0 * f[3] + q1 * f[4] + f[5];
+  const int i0 = min(max((int)s0 - ip[SVGR_I_PAT_LO], 0), ip[SVGR_I_PAT_MAX]);
+  const int i1 =
+      min(max((int)s1 - ip[SVGR_I_PAT_LO + 1], 0), ip[SVGR_I_PAT_MAX + 1]);
+  return atlas[((size_t)ip[SVGR_I_PAT] * pat_h + i0) * pat_w + i1];
+}
+
 template <int T>
 __global__ void __launch_bounds__(kThreads)
 scene_kernel(const float4* __restrict__ lines, int segs,
@@ -135,7 +162,9 @@ scene_kernel(const float4* __restrict__ lines, int segs,
              const float* __restrict__ big_wind,
              const float* __restrict__ clips,
              const float4* __restrict__ field,
-             const float4* __restrict__ pool, float4* __restrict__ out) {
+             const float4* __restrict__ pool,
+             const float4* __restrict__ patterns, int pat_h, int pat_w,
+             float4* __restrict__ out) {
   constexpr int kPx = T * T / kThreads;
   __shared__ EdgeParams s_edges[SVGR_MAX_SEGS];
   __shared__ float s_off[SVGR_MAX_STOPS];
@@ -226,6 +255,8 @@ scene_kernel(const float4* __restrict__ lines, int segs,
         paint = tex[px];
       } else if (kind == SVGR_PAINT_SOLID) {
         paint = color;
+      } else if (kind == SVGR_PAINT_PATTERN) {
+        paint = pattern_paint(s_fp, s_ip, row, col, patterns, pat_h, pat_w);
       } else {
         paint = gradient_paint(kind, spread, s_fp, row, col, s_off, s_col,
                                k_stops);
@@ -252,12 +283,15 @@ cudaError_t launch(const float* lines, int segs, const float* carry,
                    const float* fparams, const float* stop_off,
                    const float* stop_col, int k_stops, const float* big_wind,
                    const float* clips, const float* field, const float* pool,
-                   float* out, int num_tiles, cudaStream_t stream) {
+                   const float* patterns, int pat_h, int pat_w, float* out,
+                   int num_tiles, cudaStream_t stream) {
   scene_kernel<T><<<num_tiles, kThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(lines), segs, carry, tile_id, n_items,
       iparams, fparams, stop_off, reinterpret_cast<const float4*>(stop_col),
       k_stops, big_wind, clips, reinterpret_cast<const float4*>(field),
-      reinterpret_cast<const float4*>(pool), reinterpret_cast<float4*>(out));
+      reinterpret_cast<const float4*>(pool),
+      reinterpret_cast<const float4*>(patterns), pat_h, pat_w,
+      reinterpret_cast<float4*>(out));
   return cudaGetLastError();
 }
 
@@ -270,6 +304,7 @@ extern "C" int svgr_scene_tiles(const float* lines, int segs,
                                 const float* stop_col, int k_stops,
                                 const float* big_wind, const float* clips,
                                 const float* field, const float* pool,
+                                const float* patterns, int pat_h, int pat_w,
                                 float* out, int num_tiles, int tile,
                                 cudaStream_t stream) {
   if (num_tiles <= 0) return 0;
@@ -281,15 +316,18 @@ extern "C" int svgr_scene_tiles(const float* lines, int segs,
     case 16:
       return (int)launch<16>(lines, segs, carry, tile_id, n_items, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
-                             clips, field, pool, out, num_tiles, stream);
+                             clips, field, pool, patterns, pat_h, pat_w,
+                             out, num_tiles, stream);
     case 32:
       return (int)launch<32>(lines, segs, carry, tile_id, n_items, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
-                             clips, field, pool, out, num_tiles, stream);
+                             clips, field, pool, patterns, pat_h, pat_w,
+                             out, num_tiles, stream);
     case 64:
       return (int)launch<64>(lines, segs, carry, tile_id, n_items, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
-                             clips, field, pool, out, num_tiles, stream);
+                             clips, field, pool, patterns, pat_h, pat_w,
+                             out, num_tiles, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
 // The closed-form anti-aliased winding contribution of one edge to one
-// pixel, shared by prepass.cu and scene.cu.
+// pixel, shared by prepass.cu, scene.cu and winding.cu.
 //
 // For an edge clipped to the row slab [r, r+1] (a linear X(y) over
 // [lo, hi]), the contribution to pixel (r, c) is
@@ -10,8 +10,8 @@
 // reference's accumulate-then-cumsum scanline computes.
 //
 // The operations and their order are those of the JAX package's
-// ops/coverage.py and of the plain PyTorch version (ops/batch_exec.py
-// _winding); the library is built with -fmad=false so no multiply-add is
+// ops/coverage.py and of the plain PyTorch version (ops/coverage.py
+// _chunk_winding); the library is built with -fmad=false so no multiply-add is
 // fused, which keeps the |den| > 1e-7 branch on the same side as the plain
 // version's.
 #pragma once

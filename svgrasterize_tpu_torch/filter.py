@@ -12,9 +12,8 @@ feDisplacementMap, feDiffuseLighting, feSpecularLighting (distant/point/
 spot lights).
 All pixel math runs in torch on the source layer's device; filters operate
 in straight-alpha linear RGB (or sRGB, per color-interpolation-filters).  A
-copy of the JAX package's filter.py.  feImage needs the interpreter
-(Scene.render) and image resampling, so it raises NotImplementedError
-naming ROADMAP queue 1 item 7.
+copy of the JAX package's filter.py; feImage renders its fragment through
+the interpreter (Scene.render) on that device, or resizes its raster.
 """
 
 from __future__ import annotations
@@ -239,12 +238,6 @@ class Filter(NamedTuple):
         return stack[-1]
 
 
-_TODO_FE_IMAGE = (
-    "feImage needs the interpreter and image resampling, which are not "
-    "ported yet (ROADMAP queue 1 item 7)"
-)
-
-
 def _const(values, like: torch.Tensor) -> torch.Tensor:
     """Host constants as an f32 tensor on `like`'s device."""
     return torch.as_tensor(np.asarray(values, np.float32), device=like.device)
@@ -426,7 +419,36 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
         return Layer(image, src.offset, pre_alpha=False, linear_rgb=linear)
 
     if kind == FE_IMAGE:
-        raise NotImplementedError(_TODO_FE_IMAGE)
+        scene, region = attrs
+        (source,) = inputs
+        dev = source.image.device
+        if isinstance(scene, tuple) and scene[0] == "raster":
+            # external raster resource (PNG): stretched onto its subregion
+            # (or its intrinsic pixel size in user units), axis-aligned —
+            # rotation of the placement box is not applied
+            from .paint import resize_bilinear
+
+            raster = np.asarray(scene[1], dtype=np.float64) / 255.0
+            if region is None:
+                region = (0.0, 0.0, float(raster.shape[1]), float(raster.shape[0]))
+            offset, (h, w) = _output_region(region, source, transform)
+            image = resize_bilinear(
+                torch.as_tensor(raster, device=dev).to(source.image.dtype), h, w
+            )
+            layer = Layer(image, offset, pre_alpha=False, linear_rgb=False)
+            return layer.convert(pre_alpha=False, linear_rgb=linear)
+        tr = transform
+        if region is not None:
+            tr = transform @ Transform().translate(region[0], region[1])
+        result = scene.render(tr, linear_rgb=linear, device=dev)
+        if result is None:
+            offset, (h, w) = _output_region(None, source, transform)
+            return Layer(
+                source.image.new_zeros((h, w, 4)), offset,
+                pre_alpha=True, linear_rgb=linear,
+            )
+        layer, _hull = result
+        return layer.convert(pre_alpha=False, linear_rgb=linear)
 
     if kind in (FE_DIFFUSE_LIGHTING, FE_SPECULAR_LIGHTING):
         surface_scale, k, exponent, color, light = attrs

@@ -290,15 +290,17 @@ class Path:
         return stroke_path(self, width, linecap, linejoin)
 
     # --- rasterization entry points (device) -------------------------------
-    def mask(self, transform: Transform, fill_rule: str | None = None, viewport=None):
-        raise NotImplementedError(
-            "Path.mask needs the interpreter (ROADMAP queue 1 item 7)"
-        )
+    def mask(self, transform: Transform, fill_rule: str | None = None, viewport=None,
+             device="cuda"):
+        from ..render import path_mask
 
-    def fill(self, transform: Transform, paint, fill_rule: str | None = None, viewport=None, linear_rgb: bool = True):
-        raise NotImplementedError(
-            "Path.fill needs the interpreter (ROADMAP queue 1 item 7)"
-        )
+        return path_mask(self, transform, fill_rule, viewport, device)
+
+    def fill(self, transform: Transform, paint, fill_rule: str | None = None, viewport=None,
+             linear_rgb: bool = True, device="cuda"):
+        from ..render import path_fill
+
+        return path_fill(self, transform, paint, fill_rule, viewport, linear_rgb, device)
 
     # --- codec -------------------------------------------------------------
     @staticmethod

@@ -5,13 +5,13 @@ The host lowers a scene into a flat, (tile, z)-sorted list of work items
 (render_plan.py); this module runs them with ordinary tensor operations:
 
     1. winding for every work item by the closed-form clamped-trapezoid
-       area (see ops/coverage.py of the JAX package), vectorised over
+       area (ops/coverage.py), vectorised over
        (items, edges, T, T) in chunks; big segment classes run in a
        pre-pass (_prepass_winding) and replace the inline winding
     2. carry, fill rule, clip field, the 1e-6 floor, opacity
     3. the mask luminance of an isolation pass's pool row (mask items)
-    4. paint (solid, linear, radial, a pool row of an isolation pass for
-       texture items, collapsed-run field)
+    4. paint (solid, linear, radial, a pattern tile of the plan's atlas, a
+       pool row of an isolation pass for texture items, collapsed-run field)
     5. per-tile premultiplied OVER in z order: each item's rank within its
        tile run is computed, then ranks 0..max each compose all their items
        into their (distinct) tiles with one index_put_
@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import coverage
+
 # paint kinds (must match render_plan.PAINT_* of the JAX package)
 PAINT_SOLID = 0
 PAINT_LINEAR = 1
@@ -43,17 +45,17 @@ CHUNK_BIG = 32  # lowering pads big-class row counts to multiples of this
 
 # Packed per-item parameter columns (plan_from_lowered writes them; the
 # CUDA kernel reads the same columns, see csrc/kernels.h).
-I_KIND, I_RULE, I_SPREAD, I_BIG, I_CLIP, I_FIELD, I_TEX, I_MASK = range(8)
-N_IPARAMS = 8
+I_KIND, I_RULE, I_SPREAD, I_BIG, I_CLIP, I_FIELD, I_TEX, I_MASK, I_PAT = range(9)
+I_PAT_LO, I_PAT_MAX = 9, 11                # 2 columns each
+N_IPARAMS = 13
 (F_OPACITY, F_TILE_R, F_TILE_C,
  F_COLOR) = range(4)                       # color: 4 columns
 F_AFFINE = 7                               # 6 columns, row-major 2x3
 F_P0, F_P1, F_CENTER, F_FCENTER = 13, 15, 17, 19   # 2 columns each
 F_RADIUS, F_FRADIUS = 21, 22
-N_FPARAMS = 24
-
-# elements per (items, edges, T, T) temporary of the plain winding
-_WIND_BUDGET = 1 << 22
+F_PAT_FWD = 24                             # 6 columns, row-major 2x3
+F_PAT_XY, F_PAT_WH = 30, 32                # 2 columns each
+N_FPARAMS = 34
 
 # SVG mask value = luminance x alpha; on premultiplied pixels that is the
 # luminance weights dotted with the premultiplied rgb (f32, as the JAX
@@ -84,63 +86,11 @@ class DevicePlan(NamedTuple):
     clips: torch.Tensor | None  # (U, T, T) f32 clip coverage fields
     field: torch.Tensor | None  # (F, T, T, 4) f32 collapsed-run paint fields
     reads_pool: bool = False  # some item has tex_idx or mask_idx >= 0
+    patterns: torch.Tensor | None = None  # (Q, TH, TW, 4) f32 pattern-tile atlas
 
     @property
     def num_tiles(self) -> int:
         return self.grid[0] * self.grid[1]
-
-
-def _clamp_antideriv(t):
-    """Antiderivative of clamp(t, 0, 1)."""
-    return torch.where(
-        t <= 0, torch.zeros_like(t), torch.where(t >= 1, t - 0.5, 0.5 * t * t)
-    )
-
-
-def _winding(lines, t_size: int):
-    """Winding fields of many edge lists: (C, S, 4) -> (C, T, T) f32.
-
-    The closed form of the JAX package's ops/coverage.py, term for term:
-    each edge clips to each row slab, and the clamped mean of
-    (col + 1) - X(y) over the slab has the antiderivative closed form.
-    """
-    c, s, _ = lines.shape
-    dev = lines.device
-    rows = torch.arange(t_size, dtype=torch.float32, device=dev).view(t_size, 1)
-    cols = torch.arange(t_size, dtype=torch.float32, device=dev)
-    acc = torch.zeros((c, t_size, t_size), dtype=torch.float32, device=dev)
-    step = max(1, _WIND_BUDGET // max(c * t_size * t_size, 1))
-    for e0 in range(0, s, step):
-        e = lines[:, e0:e0 + step]
-        a0, a1, b0, b1 = e.unbind(-1)                    # (C, E)
-        sign = torch.sign(b0 - a0)[..., None, None]
-        y_lo = torch.minimum(a0, b0)
-        y_hi = torch.maximum(a0, b0)
-        x_at_lo = torch.where(a0 <= b0, a1, b1)
-        x_at_hi = torch.where(a0 <= b0, b1, a1)
-        dy_seg = y_hi - y_lo
-        slope = (x_at_hi - x_at_lo) / torch.where(
-            dy_seg > 0, dy_seg, torch.ones_like(dy_seg)
-        )
-        y_lo4 = y_lo[..., None, None]
-        slope4 = slope[..., None, None]
-        lo = torch.maximum(y_lo4, rows)                  # (C, E, T, 1)
-        hi = torch.minimum(y_hi[..., None, None], rows + 1.0)
-        dy = torch.clamp(hi - lo, min=0.0)
-        x_lo = x_at_lo[..., None, None] + slope4 * (lo - y_lo4)
-        x_hi = x_at_lo[..., None, None] + slope4 * (hi - y_lo4)
-        g0 = (cols + 1.0) - x_lo                         # (C, E, T, T)
-        g1 = (cols + 1.0) - x_hi
-        den = g1 - g0
-        safe = torch.abs(den) > 1e-7
-        mean = torch.where(
-            safe,
-            (_clamp_antideriv(g1) - _clamp_antideriv(g0))
-            / torch.where(safe, den, torch.ones_like(den)),
-            torch.clamp(0.5 * (g0 + g1), 0.0, 1.0),
-        )
-        acc += (sign * dy * mean).sum(dim=1)
-    return acc
 
 
 def _prepass_winding(arrays, t_size: int):
@@ -155,7 +105,7 @@ def _prepass_winding(arrays, t_size: int):
         if arr is None or arr.shape[0] == 0:
             continue
         for r0 in range(0, arr.shape[0], CHUNK_BIG):
-            winds.append(_winding(arr[r0:r0 + CHUNK_BIG], t_size))
+            winds.append(coverage.winding_fields(arr[r0:r0 + CHUNK_BIG], t_size, t_size))
     if not winds:
         return None
     winds.append(torch.zeros((1, t_size, t_size), dtype=torch.float32,
@@ -198,11 +148,13 @@ def _interp_stops(t, offsets, colors):
     return out
 
 
-def _paint(fp, ip, stop_offsets, stop_colors, t_size: int):
+def _paint(fp, ip, stop_offsets, stop_colors, t_size: int, patterns=None):
     """Each item's paint over its tile -> (C, T, T, 4) premultiplied.
 
     fp / ip are the items' packed parameter rows; the math is the JAX
-    package's batch_exec._paint_item, vectorised over items.
+    package's batch_exec._paint_item, vectorised over items.  patterns is
+    the plan's pattern-tile atlas (Q, TH, TW, 4), or None when no item
+    paints a pattern.
     """
     dev = fp.device
     col = lambda j: fp[:, j, None, None]                 # (C, 1, 1)
@@ -249,7 +201,28 @@ def _paint(fp, ip, stop_offsets, stop_colors, t_size: int):
         torch.zeros_like(grad), grad,
     )
     solid = fp[:, None, None, F_COLOR:F_COLOR + 4].expand_as(grad)
-    return torch.where((kind == PAINT_SOLID)[..., None], solid, grad)
+    out = torch.where((kind == PAINT_SOLID)[..., None], solid, grad)
+    if patterns is None:
+        return out
+
+    # pattern user space -> modular cell -> atlas pixels (truncation toward
+    # zero, then the clamp to the tile)
+    f = F_PAT_FWD
+    q0 = torch.remainder(gx - col(F_PAT_XY), col(F_PAT_WH))
+    q1 = torch.remainder(gy - col(F_PAT_XY + 1), col(F_PAT_WH + 1))
+    s0 = q0 * col(f) + q1 * col(f + 1) + col(f + 2)
+    s1 = q0 * col(f + 3) + q1 * col(f + 4) + col(f + 5)
+    icol = lambda j: ip[:, j, None, None]                # (C, 1, 1)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    i0 = torch.minimum(torch.maximum(s0.to(torch.int32) - icol(I_PAT_LO), zero),
+                       icol(I_PAT_MAX))
+    i1 = torch.minimum(torch.maximum(s1.to(torch.int32) - icol(I_PAT_LO + 1), zero),
+                       icol(I_PAT_MAX + 1))
+    q, th, tw, _ = patterns.shape
+    flat = patterns.reshape(q, th * tw, 4)
+    pidx = torch.clamp(ip[:, I_PAT], min=0).long()[:, None, None]
+    pat = flat[pidx, (i0 * tw + i1).long()]
+    return torch.where((kind == PAINT_PATTERN)[..., None], pat, out)
 
 
 def _compose_runs(canvas, tile_id, rgba):
@@ -293,7 +266,7 @@ def _scene_tiles(plan: DevicePlan, big_wind, pool=None):
         tile_id = plan.tile_id[sl].long()
         ip = plan.iparams[sl]
         fp = plan.fparams[sl]
-        wind = _winding(plan.lines[sl], t)
+        wind = coverage.winding_fields(plan.lines[sl], t, t)
         big_idx = ip[:, I_BIG]
         if big_wind is not None:
             rows = torch.where(big_idx >= 0, big_idx, big_wind.shape[0] - 1)
@@ -314,7 +287,8 @@ def _scene_tiles(plan: DevicePlan, big_wind, pool=None):
             lum = m[..., 0] * MASK_LUM[0] + m[..., 1] * MASK_LUM[1] + m[..., 2] * MASK_LUM[2]
             mask = mask * torch.where((midx >= 0)[:, None, None], lum,
                                       torch.ones_like(lum))
-        paint = _paint(fp, ip, plan.stop_offsets[sl], plan.stop_colors[sl], t)
+        paint = _paint(fp, ip, plan.stop_offsets[sl], plan.stop_colors[sl], t,
+                       plan.patterns)
         if pool is not None:
             tidx = ip[:, I_TEX]
             tex = pool[torch.clamp(tidx, min=0).long()]

@@ -38,8 +38,9 @@ _SIGNATURES = {
     "svgr_prepass_winding": (_vp, _vp, _int, _int, _int, _vp),
     "svgr_scene_tiles": (
         _vp, _int, _vp, _vp, _int, _vp, _vp, _vp, _vp, _int,
-        _vp, _vp, _vp, _vp, _vp, _int, _int, _vp,
+        _vp, _vp, _vp, _vp, _vp, _int, _int, _vp, _int, _int, _vp,
     ),
+    "svgr_winding": (_vp, _int, _vp, _int, _int, _vp),
     "svgr_blur_chunk": (
         _vp, _int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
         _int, _int, _vp, _int, _vp,

@@ -1,12 +1,13 @@
 """Wrappers of the hand-written CUDA kernels (csrc/prepass.cu, csrc/scene.cu,
-csrc/blur_chunk.cu, csrc/pool_rows.cu).
+csrc/blur_chunk.cu, csrc/pool_rows.cu, csrc/winding.cu).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches its kernel on PyTorch's current stream through the ctypes
 library (ops/cuda_lib.py) and raises if the launch returns a CUDA error.
 Tensors on the CPU go to the kernel's plain PyTorch version
-(ops/batch_exec.py, ops/filter_batch.apply_chunk) instead; that is the only
-case that does.  A tensor on any other device raises.
+(ops/batch_exec.py, ops/filter_batch.apply_chunk, ops/coverage.winding)
+instead; that is the only case that does.  A tensor on any other device
+raises.
 
 Each wrapper counts its kernel launches in its `launches` attribute, so a
 run can show that its main path went through the kernels
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from . import batch_exec, filter_batch
+from . import batch_exec, coverage, filter_batch
 from .batch_exec import MAX_STOPS, N_FPARAMS, N_IPARAMS, SMALL_SEGS, DevicePlan
 
 # tile sizes the kernels are instantiated for (a template parameter)
@@ -131,6 +132,9 @@ def scene_tiles(plan: DevicePlan, big_wind, pool=None):
         _check(plan.field, "field", f32, (None, t, t, 4), device)
     if pool is not None:
         _check(pool, "pool", f32, (None, t, t, 4), device)
+    atlas = plan.patterns  # upload sets it for every plan with pattern items
+    if atlas is not None:
+        _check(atlas, "patterns", f32, (None, None, None, 4), device)
     from . import cuda_lib
 
     lib = cuda_lib.load()
@@ -141,8 +145,9 @@ def scene_tiles(plan: DevicePlan, big_wind, pool=None):
         plan.tile_id.data_ptr(), n, plan.iparams.data_ptr(),
         plan.fparams.data_ptr(), plan.stop_offsets.data_ptr(),
         plan.stop_colors.data_ptr(), k_stops, _ptr(big_wind),
-        _ptr(plan.clips), _ptr(plan.field), _ptr(pool), out.data_ptr(),
-        num_tiles, t, _stream(device),
+        _ptr(plan.clips), _ptr(plan.field), _ptr(pool), _ptr(atlas),
+        0 if atlas is None else atlas.shape[1], 0 if atlas is None else atlas.shape[2],
+        out.data_ptr(), num_tiles, t, _stream(device),
     )
     _raise_on(rc, "scene_tiles")
     scene_tiles.launches += 1
@@ -235,7 +240,32 @@ def pool_rows(pool, src, src_idx, dst_idx):
 
 pool_rows.launches = 0
 
-KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows)
+def winding(lines, height: int, width: int):
+    """Winding field (height, width) f32 of one edge list (S, 4) f32 in
+    image pixel coordinates (rows a0, a1, b0, b1; zero rows are padding)."""
+    device = lines.device
+    if not _kernel_device(device, "winding"):
+        return coverage.winding(lines, height, width)
+    height, width = int(height), int(width)
+    if height < 0 or width < 0:
+        raise ValueError(f"winding: bad size {height} x {width}")
+    _check(lines, "lines", torch.float32, (None, 4), device)
+    out = torch.empty((height, width), dtype=torch.float32, device=device)
+    if height == 0 or width == 0:
+        return out
+    from . import cuda_lib
+
+    lib = cuda_lib.load()
+    rc = lib.svgr_winding(lines.data_ptr(), lines.shape[0], out.data_ptr(),
+                          height, width, _stream(device))
+    _raise_on(rc, "winding")
+    winding.launches += 1
+    return out
+
+
+winding.launches = 0
+
+KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding)
 
 
 def reset_launch_counts() -> None:

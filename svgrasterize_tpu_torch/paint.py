@@ -80,11 +80,72 @@ class RasterImage:
         self.array = np.ascontiguousarray(array)
 
     def render(self, transform, mask_only: bool = False, viewport=None,
-               linear_rgb: bool = False):
-        raise NotImplementedError(
-            "raster images render through the interpreter, which this port "
-            "does not have yet (ROADMAP queue 1 item 7)"
+               linear_rgb: bool = False, device="cuda"):
+        import torch
+
+        from .core.layer import Layer
+        from .geom.hull import ConvexHull
+
+        h, w = self.array.shape[:2]
+        corners = transform(
+            np.array([[0, 0], [w, 0], [0, h], [w, h]], dtype=np.float64)
         )
+        lo = np.floor(corners.min(axis=0)).astype(int)
+        hi = np.ceil(corners.max(axis=0)).astype(int)
+        rows, cols = int(hi[0] - lo[0]), int(hi[1] - lo[1])
+        if rows <= 0 or cols <= 0:
+            return None
+        img = torch.as_tensor(self.array, device=device).to(torch.float32) / 255.0
+        m = transform.m
+        simple = (
+            (transform.is_axis_aligned and m[0, 0] > 0 and m[1, 1] > 0)
+            or (transform.is_swap_axis_aligned and m[0, 1] > 0 and m[1, 0] > 0)
+        )
+        if simple:
+            img = resize_bilinear(img, rows, cols)
+        else:
+            inv = [float(v) for v in transform.invert.m[:2].ravel()]
+            f32 = torch.float32
+            pr = torch.arange(rows, dtype=f32, device=device)[:, None] + (float(lo[0]) + 0.5)
+            pc = torch.arange(cols, dtype=f32, device=device)[None, :] + (float(lo[1]) + 0.5)
+            # user dim0 spans the array's W columns, dim1 its H rows
+            fc = inv[0] * pr + inv[1] * pc + inv[2] - 0.5
+            fr = inv[3] * pr + inv[4] * pc + inv[5] - 0.5
+            fr = torch.clamp(fr, 0.0, float(h - 1))
+            fc = torch.clamp(fc, 0.0, float(w - 1))
+            r0 = torch.floor(fr).to(torch.int32)
+            c0 = torch.floor(fc).to(torch.int32)
+            r1 = torch.clamp(r0 + 1, max=h - 1)
+            c1 = torch.clamp(c0 + 1, max=w - 1)
+            wr = (fr - r0)[..., None]
+            wc = (fc - c0)[..., None]
+            r0, c0, r1, c1 = (v.long() for v in (r0, c0, r1, c1))
+            img = (
+                img[r0, c0] * (1 - wr) * (1 - wc)
+                + img[r0, c1] * (1 - wr) * wc
+                + img[r1, c0] * wr * (1 - wc)
+                + img[r1, c1] * wr * wc
+            )
+        layer = Layer(img, (int(lo[0]), int(lo[1])), pre_alpha=False,
+                      linear_rgb=False)
+        layer = layer.convert(pre_alpha=True, linear_rgb=linear_rgb)
+        if mask_only:
+            alpha_only = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=layer.image.dtype,
+                                      device=layer.image.device)
+            layer = Layer(layer.image * alpha_only, layer.offset, True, linear_rgb)
+        return layer, ConvexHull(corners)
+
+
+def resize_bilinear(image, rows: int, cols: int):
+    """Resize an (H, W, C) image to (rows, cols, C) by linear interpolation at
+    pixel centres, antialiased when it shrinks (jax.image.resize's "linear"
+    method: the triangle kernel widens by the scale factor)."""
+    import torch.nn.functional as F
+
+    x = image.permute(2, 0, 1)[None]
+    out = F.interpolate(x, size=(rows, cols), mode="bilinear", align_corners=False,
+                        antialias=True)
+    return out[0].permute(1, 2, 0)
 
 
 def stops_to_arrays(stops, linear_rgb: bool):

@@ -28,8 +28,12 @@ batched blur chunks, pool row writes), then the main stream.  The ops go
 through ops/fused_exec, whose wrappers launch the CUDA kernels on a CUDA
 device and the plain PyTorch versions on the CPU.
 
-Pattern paints, feImage and the interpreter are not ported yet: a scene
-that needs them raises NotImplementedError naming ROADMAP queue 1 item 7.
+Pattern paints render their tile once, at lowering time, through the
+interpreter (render.pattern_texture) into the plan's pattern atlas; the
+executors gather from it.  Scenes the batched path cannot express (per-paint
+colorspace overrides, > MAX_STOPS stops) lower to None, and the interpreter
+(Scene.render) batches their lowerable group runs through
+render_group_hybrid.
 """
 
 from __future__ import annotations
@@ -67,14 +71,11 @@ from .scene import (
     RENDER_STROKE,
     RENDER_TRANSFORM,
 )
-from .utils.constants import DEVICE_FLOAT, FLATNESS
+from .utils.constants import DEFAULT_TILE, DEVICE_FLOAT, FLATNESS
 
-# the CLI's tile size, as in the JAX CLI; every entry point takes it as an
-# argument
-DEFAULT_TILE = 32
-
-# the ROADMAP item named by the NotImplementedError of unported features
-_TODO_INTERP = "the interpreter is not ported yet (ROADMAP queue 1 item 7)"
+# interpreter group-run batching switch (tests disable it to get a pure
+# per-path oracle)
+HYBRID_ENABLED = True
 
 _FILL_RULE_ID = {None: 0, "nonzero": 0, "evenodd": 1}
 
@@ -454,11 +455,15 @@ def _edge_contrib(edges: np.ndarray, tile: int) -> np.ndarray:
     return mean
 
 
-def _paint_fields_np(params_list, tile_rs, tile_cs, tile: int) -> np.ndarray:
+def _paint_fields_np(
+    params_list, tile_rs, tile_cs, tile: int, pattern_tiles=None,
+) -> np.ndarray:
     """Batched numpy twin of the executors' paint evaluation for the
     scene-static paint kinds — same affine, spread, telescoping stop
-    interpolation and pixman two-circle radial math — evaluated on host at
-    lowering time so gradient-painted runs can static-collapse.  Returns
+    interpolation, pixman two-circle radial math, and (with pattern_tiles,
+    the builder's host tile list) the pattern modular gather incl. the
+    reference's int truncation — evaluated on host at lowering time so
+    gradient- and pattern-painted runs can static-collapse.  Returns
     (L, tile, tile, 4) f32 premultiplied RGBA.
     """
     L = len(params_list)
@@ -482,6 +487,28 @@ def _paint_fields_np(params_list, tile_rs, tile_cs, tile: int) -> np.ndarray:
     sol = np.nonzero(all_kinds == PAINT_SOLID)[0]
     if len(sol):
         result[sol] = tab("color")[uidx[sol]][:, None, None, :]
+    for i in np.nonzero(all_kinds == PAINT_PATTERN)[0]:
+        p = params_list[i]
+        tex = pattern_tiles[int(p["pat_idx"])]
+        m = np.asarray(p["affine"], f32)
+        rows = (np.arange(tile, dtype=f32) + 0.5) + f32(tile_rs[i])
+        cols = (np.arange(tile, dtype=f32) + 0.5) + f32(tile_cs[i])
+        gx = rows[:, None] * m[0, 0] + cols[None, :] * m[0, 1] + m[0, 2]
+        gy = rows[:, None] * m[1, 0] + cols[None, :] * m[1, 1] + m[1, 2]
+        fwd = np.asarray(p["pat_fwd"], f32)
+        q0 = np.remainder(gx - f32(p["pat_xy"][0]), f32(p["pat_wh"][0]))
+        q1 = np.remainder(gy - f32(p["pat_xy"][1]), f32(p["pat_wh"][1]))
+        s0 = q0 * fwd[0, 0] + q1 * fwd[0, 1] + fwd[0, 2]
+        s1 = q0 * fwd[1, 0] + q1 * fwd[1, 1] + fwd[1, 2]
+        i0 = np.clip(
+            s0.astype(np.int32) - int(p["pat_lo"][0]), 0, int(p["pat_max"][0])
+        )
+        i1 = np.clip(
+            s1.astype(np.int32) - int(p["pat_lo"][1]), 0, int(p["pat_max"][1])
+        )
+        result[i] = np.asarray(tex, f32).reshape(-1, 4)[
+            i0 * tex.shape[1] + i1
+        ]
     g_idx = np.nonzero(
         (all_kinds == PAINT_LINEAR) | (all_kinds == PAINT_RADIAL)
     )[0]
@@ -986,7 +1013,8 @@ class _Builder:
     its parent stream as a texture item gathered from the pass pool.
     """
 
-    def __init__(self, viewport, linear_rgb: bool, tile: int = DEFAULT_TILE):
+    def __init__(self, viewport, linear_rgb: bool, tile: int = DEFAULT_TILE,
+                 device="cuda"):
         v0, v1, h, w = viewport
         self.tile = int(tile)
         self.v0, self.v1 = v0, v1
@@ -995,6 +1023,7 @@ class _Builder:
         self.num_tiles = self.grid_h * self.grid_w
         self.shift = np.array([v0, v1, v0, v1], dtype=np.float64)
         self.linear_rgb = linear_rgb
+        self.device = device  # where pattern tiles render (_pattern_params)
         self.clip_flat_cache: dict = {}  # clip_key -> [(lines, extents, rule)]
         self.clip_tile_cache: dict = {}  # (clip_key, ti, tj) -> tile result
         self.clip_cov_cache: dict = {}   # parts content key -> tile result
@@ -1002,6 +1031,8 @@ class _Builder:
         self.passes: list = []  # [_Pass] in emission order; merged by _plan_groups
         self.pool_size = 0
         self.all_points: list = []
+        self.patterns: list = []  # host copies of rendered pattern tiles
+        self.pattern_cache: dict = {}
         self._blank_params = _paint_params(
             np.zeros(4, dtype=np.float64), None, Transform(), linear_rgb
         )
@@ -1083,6 +1114,50 @@ class _Builder:
         self.clip_cov_cache[key] = result
         return result
 
+    # -- pattern paints -------------------------------------------------------
+    def _pattern_params(self, paint: Pattern, hull: ConvexHull, transform: Transform):
+        """Resolve a Pattern paint: render its tile once, return item params.
+
+        The tile renders through the interpreter (render.pattern_texture)
+        on self.device, is cached per (paint, transform[, target bbox]) —
+        the builder lives only as long as the scene it walks — and is
+        appended to the scene's pattern atlas; the item carries the modular
+        gather frame (parity: svgrasterize.py:1049-1094).  Returns None when
+        the pattern draws nothing (the reference skips the fill, :1053-1056).
+        """
+        if paint.width <= 0 or paint.height <= 0:
+            return None
+        key = (id(paint), transform.m.tobytes())
+        if paint.bbox_units or paint.scene_bbox_units:
+            key = (*key, tuple(np.round(hull.bbox(transform), 6)))
+        if key in self.pattern_cache:
+            return self.pattern_cache[key]
+
+        from .render import pattern_texture
+
+        setup = pattern_texture(paint, hull, transform, self.linear_rgb, self.device)
+        if setup is None:
+            self.pattern_cache[key] = None
+            return None
+        pat, repeat_tr, lo, (tile_h, tile_w), pat_layer = setup
+        layer = Layer(pat, (0, 0), pat_layer.pre_alpha, pat_layer.linear_rgb)
+        tex = np.asarray(
+            layer.convert(pre_alpha=True, linear_rgb=self.linear_rgb).to_numpy(),
+            dtype=DEVICE_FLOAT,
+        )
+        params = dict(self._blank_params)
+        params["kind"] = np.int32(PAINT_PATTERN)
+        params["affine"] = repeat_tr.invert.m[:2, :].astype(DEVICE_FLOAT)
+        params["pat_fwd"] = repeat_tr.m[:2, :].astype(DEVICE_FLOAT)
+        params["pat_xy"] = np.array([paint.x, paint.y], DEVICE_FLOAT)
+        params["pat_wh"] = np.array([paint.width, paint.height], DEVICE_FLOAT)
+        params["pat_lo"] = np.asarray(lo, np.int32)
+        params["pat_max"] = np.array([tile_h, tile_w], np.int32)
+        params["pat_idx"] = np.int32(len(self.patterns))
+        self.patterns.append(tex)
+        self.pattern_cache[key] = params
+        return params
+
     # -- pass emission --------------------------------------------------------
     def _finish_pass(self, sub_records: list, out_tiles=None, post=None):
         """Record sorted records as a pass; returns {tile_id: pool_idx}.
@@ -1112,10 +1187,6 @@ class _Builder:
 
     def _emit_filter_pass(self, target, flt, transform: Transform):
         """Lower filter(target): the pass output is the filtered, grown region."""
-        from .filter import _TODO_FE_IMAGE, FE_IMAGE
-
-        if any(kind == FE_IMAGE for kind, _attrs, _inputs in flt.filters):
-            raise NotImplementedError(_TODO_FE_IMAGE)
         points_start = len(self.all_points)
         sub_records = self.build(target, transform)
         if not sub_records:
@@ -1255,9 +1326,11 @@ class _Builder:
             self.all_points.append(lines[:, 0])
             flat = lines.reshape(-1, 4) - self.shift
             if isinstance(paint, Pattern):
-                # the pattern tile renders through the interpreter
-                raise NotImplementedError(f"pattern paints: {_TODO_INTERP}")
-            params = _paint_params(paint, ConvexHull(lines), tr, self.linear_rgb)
+                params = self._pattern_params(paint, ConvexHull(lines), tr)
+                if params is None:
+                    continue  # empty pattern scene draws nothing
+            else:
+                params = _paint_params(paint, ConvexHull(lines), tr, self.linear_rgb)
             rule = _FILL_RULE_ID.get(fill_rule)
             if rule is None:
                 raise _Unsupported(f"fill rule {fill_rule}")
@@ -1337,12 +1410,12 @@ class _Builder:
         if len(records) < 2:
             return records, None
 
-        # gradient paints are scene-static per pixel too, so
-        # gradient-painted runs collapse as well — the host evaluates the
-        # same affine/spread/stop math as the device (_paint_fields_np).
-        # Pool-reading items (tex/mask) stay out: the pool is not
-        # scene-static.
-        kinds_ok = (PAINT_SOLID, PAINT_LINEAR, PAINT_RADIAL)
+        # gradient and pattern paints are scene-static per pixel too (the
+        # atlas tiles render at lowering time), so their runs collapse as
+        # well — the host evaluates the same affine/spread/stop math and
+        # pattern gather as the device (_paint_fields_np).  Pool-reading
+        # items (tex/mask) stay out: the pool is not scene-static.
+        kinds_ok = (PAINT_SOLID, PAINT_LINEAR, PAINT_RADIAL, PAINT_PATTERN)
 
         def eligible(r):
             p = r[5]
@@ -1352,6 +1425,7 @@ class _Builder:
             # transparent zeros) — makes the collapse idempotent.
             return (
                 p["kind"] in kinds_ok
+                and (p["kind"] == PAINT_PATTERN or int(p["pat_idx"]) < 0)
                 and "_field_row" not in p
                 and r[10] < 0 and r[11] < 0
             )
@@ -1410,7 +1484,7 @@ class _Builder:
                 [records[k][5] for k in part],
                 [records[k][8] + self.v0 for k in part],
                 [records[k][9] + self.v1 for k in part],
-                T,
+                T, pattern_tiles=self.patterns,
             )
         # run OVER-composites via suffix products,
         # P = sum_k paint_k cov_k prod_{j>k}(1 - a_j(x,y) cov_j),
@@ -1746,24 +1820,25 @@ class Lowered(NamedTuple):
     grid: tuple  # (grid_h, grid_w) canvas tiles
     hull: Any  # ConvexHull of all draw geometry
     groups: list  # merged isolation-pass programs (see _plan_groups)
-    patterns: Any  # pattern-tile atlas: always None in this port
+    patterns: Any  # (Q, TH, TW, 4) pattern-tile atlas or None
     tile: int  # canvas tile size this plan was lowered for
 
 
 def lower_scene(scene, transform: Transform, viewport, linear_rgb: bool,
-                tile: int = DEFAULT_TILE):
+                tile: int = DEFAULT_TILE, *, device="cuda"):
     """Lower a scene to packed host arrays; None if unsupported.
 
     viewport: (origin0, origin1, extent0, extent1) in device pixels.
     Returns a Lowered plan: the main item stream, its segment-class and
-    clip arrays, and the merged isolation-pass groups whose pooled output
-    tiles the main items reference by tex_idx/mask_idx.  Scenes with
-    pattern paints or feImage filters raise NotImplementedError (they need
-    the interpreter); scenes the batched path cannot express at all
-    (per-paint colorspace overrides, > MAX_STOPS stops) return None, as in
-    the JAX package, whose callers then use the interpreter.
+    clip arrays, the merged isolation-pass groups whose pooled output tiles
+    the main items reference by tex_idx/mask_idx, and the pattern atlas.
+    Pattern tiles render through the interpreter on `device`, the one step
+    of lowering that touches a device (a scene without patterns never
+    does).  Scenes the batched path cannot express (per-paint colorspace
+    overrides, > MAX_STOPS stops) return None, as in the JAX package, whose
+    callers then use the interpreter.
     """
-    builder = _Builder(viewport, linear_rgb, tile)
+    builder = _Builder(viewport, linear_rgb, tile, device)
     try:
         records = builder.build(scene, transform)
     except _Unsupported:
@@ -1781,8 +1856,16 @@ def lower_scene(scene, transform: Transform, viewport, linear_rgb: bool,
         for key in ("tex_idx", "mask_idx"):
             arr = items[key]
             items[key] = np.where(arr >= 0, pool_lut[np.maximum(arr, 0)], arr)
+    if builder.patterns:
+        p_h = _bucket(max(t.shape[0] for t in builder.patterns), minimum=8)
+        p_w = _bucket(max(t.shape[1] for t in builder.patterns), minimum=8)
+        patterns = np.zeros((len(builder.patterns), p_h, p_w, 4), DEVICE_FLOAT)
+        for i, t in enumerate(builder.patterns):
+            patterns[i, : t.shape[0], : t.shape[1]] = t
+    else:
+        patterns = None
     return Lowered(
-        items, bigs, clips, (builder.grid_h, builder.grid_w), hull, groups, None,
+        items, bigs, clips, (builder.grid_h, builder.grid_w), hull, groups, patterns,
         builder.tile,
     )
 
@@ -1790,13 +1873,14 @@ def lower_scene(scene, transform: Transform, viewport, linear_rgb: bool,
 # ----------------------------------------------------------------------------
 # execution
 # ----------------------------------------------------------------------------
-def _upload_items(items, bigs, clips, tile: int, grid, device) -> DevicePlan:
+def _upload_items(items, bigs, clips, tile: int, grid, device, patterns=None) -> DevicePlan:
     """Upload one packed item stream (the main stream or a pass group's) to
     `device`; per-item scalar parameters pack into the iparams / fparams
-    columns the executors read."""
+    columns the executors read.  patterns: the plan's pattern atlas (an
+    uploaded tensor, shared by every stream of the plan), or None."""
     kind = np.asarray(items["kind"])
-    if (np.asarray(items["pat_idx"]) >= 0).any() or (kind == PAINT_PATTERN).any():
-        raise NotImplementedError(f"pattern paints: {_TODO_INTERP}")
+    if patterns is None and (kind == PAINT_PATTERN).any():
+        raise ValueError("the item stream paints patterns, the plan has no atlas")
     n = kind.shape[0]
     ip = np.zeros((n, be.N_IPARAMS), np.int32)
     ip[:, be.I_KIND] = kind
@@ -1807,6 +1891,9 @@ def _upload_items(items, bigs, clips, tile: int, grid, device) -> DevicePlan:
     ip[:, be.I_FIELD] = items["field_idx"] if "field_idx" in items else -1
     ip[:, be.I_TEX] = items["tex_idx"]
     ip[:, be.I_MASK] = items["mask_idx"]
+    ip[:, be.I_PAT] = items["pat_idx"]
+    ip[:, be.I_PAT_LO:be.I_PAT_LO + 2] = items["pat_lo"]
+    ip[:, be.I_PAT_MAX:be.I_PAT_MAX + 2] = items["pat_max"]
     fp = np.zeros((n, be.N_FPARAMS), np.float32)
     fp[:, be.F_OPACITY] = items["opacity"]
     fp[:, be.F_TILE_R] = items["tile_r"]
@@ -1818,6 +1905,9 @@ def _upload_items(items, bigs, clips, tile: int, grid, device) -> DevicePlan:
         fp[:, col:col + 2] = items[key]
     fp[:, be.F_RADIUS] = items["radius"]
     fp[:, be.F_FRADIUS] = items["fradius"]
+    fp[:, be.F_PAT_FWD:be.F_PAT_FWD + 6] = np.asarray(items["pat_fwd"]).reshape(n, 6)
+    fp[:, be.F_PAT_XY:be.F_PAT_XY + 2] = items["pat_xy"]
+    fp[:, be.F_PAT_WH:be.F_PAT_WH + 2] = items["pat_wh"]
 
     dev = torch.device(device)
 
@@ -1839,22 +1929,30 @@ def _upload_items(items, bigs, clips, tile: int, grid, device) -> DevicePlan:
         clips=up(clips) if clips is not None and clips.shape[0] else None,
         field=up(field) if field is not None else None,
         reads_pool=bool((ip[:, be.I_TEX] >= 0).any() or (ip[:, be.I_MASK] >= 0).any()),
+        patterns=patterns if (kind == PAINT_PATTERN).any() else None,
     )
 
 
-def plan_from_lowered(lowered, device) -> DevicePlan:
+def _upload_atlas(lowered, device):
+    if lowered.patterns is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(lowered.patterns, np.float32)).to(
+        torch.device(device))
+
+
+def plan_from_lowered(lowered, device, patterns=None) -> DevicePlan:
     """Upload a Lowered plan's main item stream to `device` as a DevicePlan.
 
     Takes a Lowered NamedTuple of numpy arrays from either package (keys
     starting with "_", such as the JAX package's "_device_cache", are
     ignored), so the JAX lowering can feed the port's executors.  Its
-    isolation-pass groups upload with upload_program.  Plans with pattern
-    paints raise NotImplementedError.
+    isolation-pass groups upload with upload_program.  patterns: the
+    plan's atlas already on `device` (uploaded here when None).
     """
-    if lowered.patterns is not None:
-        raise NotImplementedError(f"pattern paints: {_TODO_INTERP}")
+    if patterns is None:
+        patterns = _upload_atlas(lowered, device)
     return _upload_items(lowered.items, lowered.bigs, lowered.clips,
-                         lowered.tile, lowered.grid, device)
+                         lowered.tile, lowered.grid, device, patterns)
 
 
 class _Level(NamedTuple):
@@ -1884,6 +1982,7 @@ def upload_program(lowered, device) -> DeviceProgram:
     from .ops import filter_batch
 
     dev = torch.device(device)
+    atlas = _upload_atlas(lowered, dev)  # pass groups can paint patterns too
 
     def rows(values):
         return torch.as_tensor(np.asarray(values, np.int32), device=dev)
@@ -1906,13 +2005,13 @@ def upload_program(lowered, device) -> DeviceProgram:
                 filters.append((p, rows(_part_out_local(p, lowered.grid[1])), rows(dst)))
         levels.append(_Level(
             plan=_upload_items(g["items"], g["bigs"], g["clips"], lowered.tile,
-                               (1, g["rows"]), dev),
+                               (1, g["rows"]), dev, atlas),
             needs_pool=bool(g["needs_pool"]),
             copy_rows=(rows(copy_src), rows(copy_dst)) if copy_src else None,
             filters=filters,
             chunks=[filter_batch.upload_chunk(ck, dev) for ck in chunks],
         ))
-    return DeviceProgram(levels, plan_from_lowered(lowered, dev), pool_total,
+    return DeviceProgram(levels, plan_from_lowered(lowered, dev, atlas), pool_total,
                          int(lowered.tile), tuple(lowered.grid))
 
 
@@ -2076,7 +2175,7 @@ def render_fast(scene, transform: Transform, viewport, linear_rgb: bool = False,
                 *, tile: int = DEFAULT_TILE, device):
     """Whole-scene batched render on `device`; returns (Layer, hull), or
     None when the batched path cannot express the scene."""
-    lowered = lower_scene(scene, transform, viewport, linear_rgb, tile)
+    lowered = lower_scene(scene, transform, viewport, linear_rgb, tile, device=device)
     if lowered is None:
         return None
     tiles = execute_lowered(lowered, device, viewport[:2], linear_rgb)
@@ -2127,7 +2226,143 @@ class CompiledScene:
 def compile_scene(scene, transform: Transform, viewport, linear_rgb: bool = False,
                   *, tile: int = DEFAULT_TILE, device):
     """Lower a scene once for repeated rendering; None if unsupported."""
-    lowered = lower_scene(scene, transform, viewport, linear_rgb, tile)
+    lowered = lower_scene(scene, transform, viewport, linear_rgb, tile, device=device)
     if lowered is None:
         return None
     return CompiledScene(lowered, viewport, linear_rgb, device)
+
+
+def can_lower(scene, linear_rgb: bool, in_clip: bool = False) -> bool:
+    """Cheap structural predicate: would lower_scene accept this subtree?
+
+    Mirrors _collect_draws / _paint_params / _clip_parts checks without
+    touching geometry, so the hybrid group renderer can partition children
+    into batchable runs in O(nodes).
+    """
+    kind, args = scene
+    if kind in (RENDER_FILL, RENDER_STROKE):
+        paint = args[1]
+        if paint is None:
+            return True
+        if isinstance(paint, np.ndarray):
+            return True
+        if isinstance(paint, (GradLinear, GradRadial)):
+            if paint.linear_rgb is not None and paint.linear_rgb != linear_rgb:
+                return False
+            return len(paint.stops) <= MAX_STOPS
+        if isinstance(paint, Pattern):
+            # the tile is rendered through the interpreter at lowering time,
+            # so any pattern content batches
+            return True
+        return False
+    if kind == RENDER_GROUP:
+        return all(can_lower(c, linear_rgb, in_clip) for c in args)
+    if kind == RENDER_TRANSFORM:
+        return can_lower(args[0], linear_rgb, in_clip)
+    if kind == RENDER_OPACITY:
+        # single draws fold; groups become isolation passes — both lower
+        return can_lower(args[0], linear_rgb, in_clip)
+    if kind == RENDER_CLIP:
+        target, clip_scene, _bbox_units = args
+        # nested clips isolate as passes, so in_clip does not block;
+        # bbox-units resolve from the target hull at lowering time
+        return _clip_scene_ok(clip_scene) and can_lower(target, linear_rgb, True)
+    if kind == RENDER_MASK:
+        target, mask_scene, _bbox_units = args
+        return can_lower(target, linear_rgb, in_clip) and can_lower(
+            mask_scene, linear_rgb, in_clip
+        )
+    if kind == RENDER_FILTER:
+        return can_lower(args[0], linear_rgb, in_clip)
+    return False
+
+
+def _clip_scene_ok(scene) -> bool:
+    # any mix of fill rules lowers: clip coverage is the precomputed
+    # per-part union (_clip_tile), matching the reference's mask_only
+    # OVER composition exactly
+    def walk(scene) -> bool:
+        kind, args = scene
+        if kind == RENDER_FILL:
+            return True
+        if kind == RENDER_GROUP:
+            return all(walk(c) for c in args)
+        if kind == RENDER_TRANSFORM:
+            return walk(args[0])
+        return False
+
+    return walk(scene)
+
+
+def crop_layer_to_hull(layer: Layer, hull: ConvexHull, viewport) -> Layer:
+    """Crop a viewport-sized layer down to its hull's bucketed bbox.
+
+    Downstream layer ops (colorspace conversion, filters, composition) then
+    run on content-sized tensors; the extent is the JAX package's (its
+    bucketed dims keep XLA's set of compiled shapes small), so layer
+    origins, and with them truncation-sensitive filter placement, match.
+    """
+    from .utils.buckets import bucket_dim
+
+    pts = hull.raw_points
+    if len(pts) == 0:
+        return layer
+    v0, v1, vh, vw = (int(x) for x in viewport)
+    r0 = max(int(np.floor(pts[:, 0].min())) - 1, v0)
+    c0 = max(int(np.floor(pts[:, 1].min())) - 1, v1)
+    r1 = min(int(np.ceil(pts[:, 0].max())) + 1, v0 + vh)
+    c1 = min(int(np.ceil(pts[:, 1].max())) + 1, v1 + vw)
+    if r1 <= r0 or c1 <= c0:
+        return layer
+    h = bucket_dim(r1 - r0)
+    w = bucket_dim(c1 - c0)
+    if h >= layer.height and w >= layer.width:
+        return layer
+    # shift the window up-left so the bucketed extent stays inside the canvas
+    r0 = max(min(r0, v0 + vh - h), v0)
+    c0 = max(min(c0, v1 + vw - w), v1)
+    h = min(h, layer.height)
+    w = min(w, layer.width)
+    image = layer.image[r0 - layer.x : r0 - layer.x + h, c0 - layer.y : c0 - layer.y + w]
+    return Layer(image, (r0, c0), layer.pre_alpha, layer.linear_rgb)
+
+
+def render_group_hybrid(children, transform: Transform, viewport, linear_rgb: bool,
+                        *, tile: int = DEFAULT_TILE, device="cuda"):
+    """Render a group's children, batching maximal runs of lowerable ones.
+
+    Returns a list of (Layer, hull) results in paint order (callers compose
+    with OVER); runs render through render_fast at `tile` on `device`,
+    non-batchable children through Scene.render.
+    """
+    from .scene import Scene
+
+    results: list = []
+    run: list = []
+    sub = dict(tile=tile, device=device)
+
+    def flush():
+        if not run:
+            return
+        group = Scene.group(run) if len(run) > 1 else run[0]
+        rendered = render_fast(group, transform, viewport, linear_rgb, **sub)
+        if rendered is not None:
+            layer, hull = rendered
+            results.append((crop_layer_to_hull(layer, hull, viewport), hull))
+        else:  # predicate was optimistic; render the run via the interpreter
+            for child in run:
+                out = child.render(transform, viewport=viewport, linear_rgb=linear_rgb, **sub)
+                if out is not None:
+                    results.append(out)
+        run.clear()
+
+    for child in children:
+        if viewport is not None and can_lower(child, linear_rgb):
+            run.append(child)
+            continue
+        flush()
+        out = child.render(transform, viewport=viewport, linear_rgb=linear_rgb, **sub)
+        if out is not None:
+            results.append(out)
+    flush()
+    return results

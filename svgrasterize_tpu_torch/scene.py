@@ -1,9 +1,10 @@
-"""Scene IR: a retained-mode render graph.
+"""Scene IR: a retained-mode render graph with a host interpreter.
 
 Eight node kinds mirroring the reference (svgrasterize.py:576-859): FILL,
 STROKE, GROUP, OPACITY, CLIP, MASK, TRANSFORM, FILTER.  The batched render
-path (render_plan.py) lowers the graph; the per-path interpreter is not
-ported yet, so Scene.render raises.
+path (render_plan.py) lowers the graph; the interpreter (Scene.render) walks
+it on the host, and every pixel operation it triggers (rasterize, paint,
+compose, filter) runs on the render's device.
 """
 
 from __future__ import annotations
@@ -13,8 +14,14 @@ import textwrap
 from typing import Any
 
 import numpy as np
+import torch
 
+from .core import color as color_ops
+from .core.layer import Layer
 from .core.transform import Transform
+from .geom.hull import ConvexHull
+from .ops.compose import COMPOSE_IN, COMPOSE_OVER
+from .utils.constants import DEFAULT_TILE
 
 RENDER_FILL = 0
 RENDER_STROKE = 1
@@ -81,16 +88,128 @@ class Scene(tuple):
         mask_only: bool = False,
         viewport=None,
         linear_rgb: bool = False,
+        *,
+        tile: int = DEFAULT_TILE,
+        device="cuda",
     ):
-        """The per-path interpreter; not ported yet (ROADMAP queue 1 item 7).
+        """Render the graph on `device`; returns (Layer, ConvexHull) or None.
 
-        Scenes the batched path cannot lower have no other route in this
-        port, so this raises instead of rendering something else.
+        Groups rendered with a viewport batch their maximal runs of
+        lowerable children through render_plan.render_group_hybrid (the
+        batched path at `tile`), as the JAX package's interpreter does.
         """
-        raise NotImplementedError(
-            "Scene.render (the interpreter) is not ported yet "
-            "(ROADMAP queue 1 item 7)"
-        )
+        kind, args = self
+        sub = dict(tile=tile, device=device)
+
+        if kind == RENDER_FILL:
+            path, paint, fill_rule = args
+            if mask_only:
+                return path.mask(transform, fill_rule=fill_rule, viewport=viewport,
+                                 device=device)
+            return path.fill(
+                transform, paint, fill_rule=fill_rule, viewport=viewport,
+                linear_rgb=linear_rgb, device=device,
+            )
+
+        if kind == RENDER_STROKE:
+            path, paint, width, linecap, linejoin = args
+            outline = path.stroke(width, linecap, linejoin)
+            if mask_only:
+                return outline.mask(transform, viewport=viewport, device=device)
+            return outline.fill(transform, paint, viewport=viewport,
+                                linear_rgb=linear_rgb, device=device)
+
+        if kind == RENDER_GROUP:
+            from . import render_plan
+
+            if not mask_only and viewport is not None and render_plan.HYBRID_ENABLED:
+                # batch maximal runs of lowerable children into single dispatches
+                results = render_plan.render_group_hybrid(
+                    args, transform, viewport, linear_rgb, **sub
+                )
+            else:
+                results = [
+                    r
+                    for child in args
+                    if (r := child.render(transform, mask_only, viewport, linear_rgb, **sub))
+                    is not None
+                ]
+            if not results:
+                return None
+            layers = [layer for layer, _ in results]
+            hulls = [hull for _, hull in results]
+            group = Layer.compose(layers, COMPOSE_OVER, linear_rgb)
+            if group is None:
+                return None
+            return group, ConvexHull.merge(hulls)
+
+        if kind == RENDER_OPACITY:
+            target, opacity = args
+            result = target.render(transform, mask_only, viewport, linear_rgb, **sub)
+            if result is None:
+                return None
+            layer, hull = result
+            return layer.opacity(opacity, linear_rgb), hull
+
+        if kind == RENDER_CLIP:
+            target, clip_scene, bbox_units = args
+            result = target.render(transform, mask_only, viewport, linear_rgb, **sub)
+            if result is None:
+                return None
+            image, hull = result
+            if bbox_units:
+                transform = hull.bbox_transform(transform)
+            clip_result = clip_scene.render(transform, True, viewport, linear_rgb, **sub)
+            if clip_result is None:
+                return None
+            clip_mask, _ = clip_result
+            out = Layer.compose([clip_mask, image], COMPOSE_IN, linear_rgb)
+            if out is None:
+                return None
+            return out, hull
+
+        if kind == RENDER_MASK:
+            target, mask_scene, bbox_units = args
+            result = target.render(transform, mask_only, viewport, linear_rgb, **sub)
+            if result is None:
+                return None
+            image, hull = result
+            if bbox_units:
+                transform = hull.bbox_transform(transform)
+            mask_result = mask_scene.render(transform, mask_only, viewport, linear_rgb, **sub)
+            if mask_result is None:
+                return None
+            mask_layer, _ = mask_result
+            # mask value = luminance * alpha
+            mask_layer = mask_layer.convert(pre_alpha=False, linear_rgb=linear_rgb)
+            lum = torch.as_tensor(color_ops.MASK_LUMINANCE, dtype=mask_layer.image.dtype,
+                                  device=mask_layer.image.device)
+            value = (mask_layer.image[..., :3] @ lum) * mask_layer.image[..., 3]
+            mask_layer = Layer(value[..., None], mask_layer.offset, False, linear_rgb)
+            out = Layer.compose([mask_layer, image], COMPOSE_IN, linear_rgb)
+            if out is None:
+                return None
+            return out, hull
+
+        if kind == RENDER_TRANSFORM:
+            target, inner = args
+            return target.render(transform @ inner, mask_only, viewport, linear_rgb, **sub)
+
+        if kind == RENDER_FILTER:
+            target, flt = args
+            result = target.render(transform, mask_only, viewport, linear_rgb, **sub)
+            if result is None:
+                return None
+            image, hull = result
+            # crop the source to the reference's layer extent (floor(min)-1
+            # .. ceil(max)+1 of the geometry, svgrasterize.py:966-967):
+            # valid-mode morphology pooling makes the layer EXTENT part of
+            # the semantics (the window anchors at the layer corner), so a
+            # source larger than that diverges from the reference there
+            image = _crop_to_content(image, hull)
+            return flt(transform, image), hull
+
+        raise ValueError(f"unhandled scene kind: {kind}")
 
     # --- utilities --------------------------------------------------------------
     def to_path(self, transform: Transform):
@@ -124,6 +243,25 @@ class Scene(tuple):
         out = io.StringIO()
         _repr_rec(self, out, 0)
         return out.getvalue()[:-1]
+
+
+def _crop_to_content(layer: Layer, hull: ConvexHull) -> Layer:
+    """Crop a layer to the reference's mask-extent convention:
+    floor(min)-1 .. ceil(max)+1 of the subtree geometry, intersected with
+    the layer's own extent (which is already viewport-clamped)."""
+    pts = hull.raw_points
+    if len(pts) == 0:
+        return layer
+    r0 = max(int(np.floor(pts[:, 0].min())) - 1, layer.x)
+    c0 = max(int(np.floor(pts[:, 1].min())) - 1, layer.y)
+    r1 = min(int(np.ceil(pts[:, 0].max())) + 1, layer.x + layer.height)
+    c1 = min(int(np.ceil(pts[:, 1].max())) + 1, layer.y + layer.width)
+    if r1 <= r0 or c1 <= c0:
+        return layer
+    if (r0, c0) == (layer.x, layer.y) and (r1 - r0, c1 - c0) == (layer.height, layer.width):
+        return layer
+    image = layer.image[r0 - layer.x : r1 - layer.x, c0 - layer.y : c1 - layer.y]
+    return Layer(image, (r0, c0), layer.pre_alpha, layer.linear_rgb)
 
 
 def _format_paint(paint: Any) -> str:

@@ -27,3 +27,8 @@ FLOAT_RE = re.compile(r"[-+]?(?:(?:\d*\.\d+)|(?:\d+\.?))(?:[Ee][+-]?\d+)?")
 # Default curve-flattening tolerance in device pixels (reference hardcodes
 # 0.1px at svgrasterize.py:953-955).
 FLATNESS = 0.1
+
+# Canvas tile size of the batched render path's one-shot renders (the CLI
+# and the interpreter's group runs), as in the JAX CLI; every entry point
+# takes it as an argument.
+DEFAULT_TILE = 32

@@ -92,8 +92,13 @@ def test_cli_without_a_card_raises(tmp_path):
         torch_main([str(svg), str(tmp_path / "out.png")])
 
 
-def test_cli_without_document_size_raises(tmp_path):
+def test_cli_without_document_size_raises(tmp_path, monkeypatch):
+    """A raw path file has no document size: the CLI renders it through the
+    interpreter (Scene.render without a viewport), as the JAX CLI does.
+    (The name is the one this test had while that route raised.)"""
     path = tmp_path / "shape.path"
     path.write_text("M2 2 L30 4 L16 28 Z")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        torch_main([str(path), str(tmp_path / "out.png"), "--device", "cpu"])
+    ref = _jax_png(str(path), str(tmp_path / "jax.png"), monkeypatch)
+    assert torch_main([str(path), str(tmp_path / "port.png"), "--device", "cpu"]) == 0
+    with open(tmp_path / "port.png", "rb") as f:
+        _assert_png_close(read_png(f.read()), ref)

@@ -1,9 +1,10 @@
 """The port's filter execution against the JAX package's.
 
-Every filter primitive the port runs (all but feImage) is parsed from the
-same SVG by both packages' frontends and applied to one seeded layer (numpy
-random premultiplied RGBA) through Filter.__call__ (each primitive's
-_apply): results must agree within 1e-5.  The batched blur chunk's plain
+Every filter primitive is parsed from the same SVG by both packages'
+frontends and applied to one seeded layer (numpy random premultiplied RGBA)
+through Filter.__call__ (each primitive's _apply): results must agree within
+1e-5 (feImage, which renders through the interpreter, here and in
+tests/test_torch_interp.py).  The batched blur chunk's plain
 version (ops/filter_batch.apply_chunk) is held against the JAX package's
 XLA chain and its Pallas chunk kernel in interpret mode within 2e-6, the
 bound tests/test_filter_batch.py holds between those two.
@@ -185,16 +186,22 @@ def test_blur_ops_match_jax():
 
 
 def test_fe_image_raises_naming_the_interpreter():
+    """feImage of a fragment renders it through the interpreter; the filter
+    matches the JAX package's.  (The name is the one this test had while
+    feImage raised.)"""
     doc = (
         "<svg xmlns='http://www.w3.org/2000/svg' width='32' height='32'><defs>"
         "<g id='frag'><circle cx='8' cy='8' r='6' fill='lime'/></g>"
         "<filter id='f'><feImage href='#frag'/></filter></defs>"
         "<rect width='10' height='10' fill='red' filter='url(#f)'/></svg>"
     )
-    flt = t_scene_from_str(doc)[1]["f"]
-    layer = TLayer(torch.from_numpy(_layer_image(0)), (0, 0), True, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        flt(TTransform(), layer)
+    image = _layer_image(0)
+    ref = j_scene_from_str(doc)[1]["f"](
+        JTransform(), JLayer(jnp.asarray(image), (0, 0), True, False))
+    got = t_scene_from_str(doc)[1]["f"](
+        TTransform(), TLayer(torch.from_numpy(image), (0, 0), True, False))
+    _assert_layers_close(ref, got)
+    assert float(np.asarray(ref.image)[..., 3].max()) > 0.0
 
 
 def _random_chunk(rng, t, nsi, nsj, noi, noj, B, chain_linear):

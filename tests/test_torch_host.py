@@ -1,7 +1,7 @@
 """Host-side twins of the port (svgrasterize_tpu_torch) against the JAX
 package: geometry, parsing and PNG encoding must be exactly equal; the port
-must import without jax; and what the port's slice lacks must raise
-NotImplementedError instead of rendering something else.
+must import without jax; and pattern paints and feImage, which the port
+once refused, render through every entry point as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from svgrasterize_tpu import scene_from_str as j_scene_from_str
 from svgrasterize_tpu.core import png as j_png
@@ -110,7 +111,6 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
-# documents that still need the interpreter (ROADMAP queue 1 item 7):
 # pattern paints, also inside an opacity group or a mask, and feImage
 GROUP_OPACITY = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
 <defs><pattern id='p' width='8' height='8' patternUnits='userSpaceOnUse'>
@@ -131,27 +131,61 @@ FILTER = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height='48'>
 <filter id='f'><feImage href='#frag'/></filter></defs>
 <circle cx='30' cy='24' r='12' fill='#a0b020' filter='url(#f)'/></svg>"""
 
+EXEC_TOL = 1e-5  # the bound the executors hold against the JAX package
+
+
+def _canvas(layer, vp, merge_at, zeros):
+    layer = layer.convert(pre_alpha=True, linear_rgb=False)
+    return np.asarray(merge_at(zeros((vp[2], vp[3], 4)), layer.image, layer.offset))
+
 
 @pytest.mark.parametrize("svg", [GROUP_OPACITY, PATTERN, MASK, FILTER],
                          ids=["group_opacity", "pattern", "mask", "filter"])
-def test_unported_features_raise(svg):
+def test_unported_features_raise(svg, monkeypatch):
+    """render_fast, compile_scene, lower_scene + execute_lowered and
+    Scene.render all match the JAX package's render_fast (its XLA executor
+    at the same tile) on documents the port refused before its interpreter
+    was ported.  (The name is the one this test had then.)"""
+    import jax.numpy as jnp
+
+    import svgrasterize_tpu.render_plan as jrp
+    from svgrasterize_tpu.core.layer import merge_at as j_merge_at
+    from svgrasterize_tpu_torch.core.layer import merge_at as t_merge_at
+    from svgrasterize_tpu_torch.render_plan import execute_lowered, tiles_to_layer
+
+    monkeypatch.setenv("SVGR_FUSED", "0")
+    monkeypatch.setenv("SVGR_TILE", "32")
     scene, _ids, (w, h) = t_scene_from_str(svg)
     tr = TTransform().matrix(0, 1, 0, 1, 0, 0)
     vp = (0, 0, int(h), int(w))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        render_fast(scene, tr, vp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        compile_scene(scene, tr, vp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        lower_scene(scene, tr, vp, False, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        scene.render(tr, viewport=vp)
+    j_layer, _ = jrp.render_fast(j_scene_from_str(svg)[0], JTransform().matrix(0, 1, 0, 1, 0, 0),
+                                 vp, False)
+    ref = _canvas(j_layer, vp, j_merge_at, jnp.zeros)
+    assert ref[..., 3].max() > 0
+
+    def close(layer):
+        got = _canvas(layer, vp, t_merge_at, torch.zeros)
+        assert got.shape == ref.shape and np.abs(got - ref).max() <= EXEC_TOL
+
+    close(render_fast(scene, tr, vp, device="cpu")[0])
+    close(compile_scene(scene, tr, vp, device="cpu").render())
+    lowered = lower_scene(scene, tr, vp, False, 32, device="cpu")
+    close(tiles_to_layer(execute_lowered(lowered, "cpu"), lowered.grid, 32, vp, False))
+    close(scene.render(tr, viewport=vp, device="cpu")[0])
 
 
-def test_jax_plan_with_passes_is_refused():
+def test_jax_plan_with_passes_is_refused(monkeypatch):
     """A JAX plan whose passes paint patterns (its lowering rendered the
-    pattern tiles through its interpreter) is refused."""
+    pattern tiles through its interpreter) runs on the port's executors and
+    matches the JAX package's.  (The name is the one this test had while
+    such plans were refused.)"""
+    import svgrasterize_tpu.render_plan as jrp
+    from svgrasterize_tpu_torch.render_plan import execute_lowered
+
+    monkeypatch.setenv("SVGR_FUSED", "0")
     lowered = jax_lower(GROUP_OPACITY, 32)
     assert lowered.groups and lowered.patterns is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        plan_from_lowered(lowered, "cpu")
+    ref = np.asarray(jrp.execute_lowered(lowered, (0, 0), False))
+    plan_from_lowered(lowered, "cpu")
+    got = execute_lowered(lowered, "cpu").numpy()
+    assert np.abs(got - ref).max() <= EXEC_TOL

@@ -142,7 +142,7 @@ def jax_lower(svg: str, tile: int):
 
 def torch_lower(svg: str, tile: int):
     tr = TTransform().matrix(0, 1, 0, 1, 0, 0)
-    return trp.lower_scene(torch_scene(svg), tr, viewport_of(svg), False, tile)
+    return trp.lower_scene(torch_scene(svg), tr, viewport_of(svg), False, tile, device="cpu")
 
 
 @pytest.mark.parametrize("tile", [32, 64])

@@ -346,13 +346,20 @@ _PATTERN_IN_GROUP = """<svg xmlns='http://www.w3.org/2000/svg' width='64' height
 
 
 @pytest.mark.parametrize("svg", [_FE_IMAGE, _PATTERN_IN_GROUP], ids=["fe_image", "pattern"])
-def test_interpreter_features_still_raise(svg, tmp_path):
-    scene = torch_scene(svg)
-    tr = TTransform().matrix(0, 1, 0, 1, 0, 0)
-    vp = viewport_of(svg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        trp.render_fast(scene, tr, vp, device="cpu")
+def test_interpreter_features_still_raise(svg, tmp_path, monkeypatch):
+    """feImage and a pattern inside an opacity group lower to isolation
+    passes as in the JAX package: render_fast's tiles match its XLA
+    executor and the CLI PNG its CLI.  (The name is the one this test had
+    while both raised.)"""
+    monkeypatch.setenv("SVGR_FUSED", "0")
+    ref = np.asarray(jrp.execute_lowered(jax_lower(svg, 32), (0, 0), False))
+    lowered = torch_lower(svg, 32)
+    assert lowered.groups
+    got = trp.execute_lowered(lowered, "cpu").numpy()
+    assert np.abs(got - ref).max() <= EXEC_TOL
     path = tmp_path / "doc.svg"
     path.write_text(svg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        torch_main([str(path), str(tmp_path / "out.png"), "--device", "cpu"])
+    png = _jax_png(str(path), str(tmp_path / "jax.png"), monkeypatch)
+    assert torch_main([str(path), str(tmp_path / "out.png"), "--device", "cpu"]) == 0
+    with open(tmp_path / "out.png", "rb") as f:
+        _assert_png_close(read_png(f.read()), png)
