@@ -8,7 +8,10 @@ sm_90a):
 
 It builds the five hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
 with nvcc (one process per source, in parallel), holds each against its
-plain PyTorch version on the card, then drives the port's main paths: the
+plain PyTorch version on the card (the prepass on random multi-class calls,
+one launch each; the winding kernel on one interpreter render's masks, one
+launch per mask and all of them in one batched launch, which must agree bit
+for bit), then drives the port's main paths: the
 CLI renders a generated pass-free 1,536-draw document at 1488 x 1488 and a
 compiled scene of it serves 5 frames at 3840 x 3840; the CLI renders a
 generated document full of isolation passes (group opacity, masks, clips,
@@ -523,6 +526,24 @@ def _time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(torch, fn, reps: int) -> float:
+    """Mean ms per call of fn on the card with the host ahead of it: a
+    sleep kernel queued first holds the card while the host enqueues every
+    call, so the calls run back to back and the host's dispatch between
+    them is hidden (_time_ms includes it wherever it is the slower side)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clocks
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _lower(doc_path: str, width, tile: int, passes: bool = False):
     """Parse and lower a document as the CLI does; returns
     (viewport, lowered, {layer: seconds}).  passes: whether the document
@@ -583,6 +604,15 @@ def _winding_ops(edges, height: int, width: int) -> int:
     live = edges[..., 0] != edges[..., 2]
     edge_rows = int((rows * live).sum())
     return edge_rows * (ROW_OPS + PAIR_OPS * width)
+
+
+def _prepass_bound(bigs, t: int) -> dict:
+    """Bound of one prepass launch over a plan's classes: their live edges
+    read once and every row's (T, T) field plus the zero row written once,
+    against _winding_ops over the rows."""
+    nbytes = sum(_live_edges(b) * 16 for b in bigs) + (
+        sum(b.shape[0] for b in bigs) + 1) * t * t * 4
+    return _bound(nbytes, sum(_winding_ops(b, t, t) for b in bigs))
 
 
 def _scene_bound(plan, big, pool=None) -> dict:
@@ -877,39 +907,54 @@ def main() -> int:
             f"lowered in {seconds['lower']:.2f}s"
         ))
 
-        # 3. prepass kernel against plain
+        # 3. prepass kernel against plain: random multi-class calls (mixed
+        # widths, all-padding rows), one launch each, then the plan's classes
         rng = np.random.default_rng(1)
         worst = 0.0
-        for t in (32, 64):
-            for width in (128, 256, 512, 1024):
-                m = 48
-                edges = np.zeros((m, width, 4), np.float32)
-                for r in range(m):
-                    live = int(rng.integers(1, width + 1))
-                    edges[r, :live] = rng.uniform(-4, t + 4, (live, 4))
-                arr = torch.from_numpy(edges).to(dev)
-                got = fused_exec.prepass_winding([arr], t)
-                ref = batch_exec._prepass_winding([arr], t)
+        for t in (16, 32, 64):
+            t_worst, shapes = 0.0, []
+            for _ in range(3):
+                arrays = []
+                widths = rng.choice((16, 32, 64, 128, 256, 512, 1024),
+                                    size=int(rng.integers(2, 6)), replace=False)
+                for width in sorted(int(w) for w in widths):
+                    m = int(rng.integers(1, 41))
+                    edges = np.zeros((m, width, 4), np.float32)
+                    for r in range(m):
+                        if rng.random() < 0.2:
+                            continue  # an all-padding row
+                        live = int(rng.integers(1, width + 1))
+                        edges[r, :live] = rng.uniform(-4, t + 4, (live, 4))
+                    arrays.append(torch.from_numpy(edges).to(dev))
+                shapes.append([tuple(a.shape[:2]) for a in arrays])
+                before = fused_exec.prepass_winding.launches
+                got = fused_exec.prepass_winding(arrays, t)
+                if fused_exec.prepass_winding.launches != before + 1:
+                    raise RuntimeError("prepass_winding made more than one launch")
+                ref = batch_exec._prepass_winding(arrays, t)
                 torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                worst = max(worst, err)
-                _say("prepass", f"T={t} width={width}: max abs diff {err:.3g}")
-                if not err <= PREPASS_TOL:
-                    raise RuntimeError(f"prepass kernel disagrees: {err} > {PREPASS_TOL}")
+                t_worst = max(t_worst, float((got - ref).abs().max()))
+            worst = max(worst, t_worst)
+            _say("prepass", f"T={t} calls of classes (rows, width) {shapes}, one launch"
+                            f" each: max abs diff {t_worst:.3g}")
+            if not worst <= PREPASS_TOL:
+                raise RuntimeError(f"prepass kernel disagrees: {worst} > {PREPASS_TOL}")
         got = fused_exec.prepass_winding(plan.bigs, plan.tile)
         ref = batch_exec._prepass_winding(plan.bigs, plan.tile)
         err = 0.0 if got is None else float((got - ref).abs().max())
         if not err <= PREPASS_TOL:
             raise RuntimeError(f"prepass kernel disagrees on the plan: {err}")
         ms = _time_ms(torch, lambda: fused_exec.prepass_winding(plan.bigs, 32), 20)
+        dev_ms = _device_ms(torch, lambda: fused_exec.prepass_winding(plan.bigs, 32), 20)
         plain_ms = _time_ms(torch, lambda: batch_exec._prepass_winding(plan.bigs, 32), 5)
-        nbytes = sum(_live_edges(b) * 16 for b in plan.bigs) + (
-            sum(b.shape[0] for b in plan.bigs) + 1) * 32 * 32 * 4
-        ops = sum(_winding_ops(b, 32, 32) for b in plan.bigs)
         results["prepass_winding"] = dict(max_abs_err=max(err, worst), ms=ms, plain_ms=plain_ms,
-                                          **_bound(nbytes, ops), library_ms=None)
+                                          **_prepass_bound(plan.bigs, 32), library_ms=None)
         _say("prepass", (
-            f"plan bigs: max abs diff {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"flat plan T=32 ({sum(b.shape[0] for b in plan.bigs)} rows): max abs diff"
+            f" {err:.3g}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms with the host"
+            f" ahead), plain {plain_ms:.4f} ms, bound"
+            f" {results['prepass_winding']['bound_ms']:.6f} ms"
+            f" ({results['prepass_winding']['bound_by']})"
         ))
 
         # 4. scene kernel against plain, on the 1488^2 plan at T=32
@@ -989,13 +1034,31 @@ def main() -> int:
         serve_err = float((last - plain_last).abs().max())
         if not serve_err <= SCENE_TOL:
             raise RuntimeError(f"serving kernels disagree with plain: {serve_err}")
+        # the frame's split between its two kernels, each timed alone
+        splan = cs.plan
+        sbig = fused_exec.prepass_winding(splan.bigs, 64)
+        serr = float((sbig - batch_exec._prepass_winding(splan.bigs, 64)).abs().max())
+        if not serr <= PREPASS_TOL:
+            raise RuntimeError(f"prepass kernel disagrees on the serving plan: {serr}")
+        spre_ms = _time_ms(torch, lambda: fused_exec.prepass_winding(splan.bigs, 64), 20)
+        spre_dev_ms = _device_ms(torch, lambda: fused_exec.prepass_winding(splan.bigs, 64), 20)
+        sscene_ms = _time_ms(torch, lambda: fused_exec.scene_tiles(splan, sbig), 20)
+        sb = _prepass_bound(splan.bigs, 64)
+        _say("prepass", (
+            f"serving plan {int(w)}^2 T=64 (classes (rows, width)"
+            f" {[tuple(b.shape[:2]) for b in splan.bigs]}): max abs diff {serr:.3g};"
+            f" kernel {spre_ms:.4f} ms per call ({spre_dev_ms:.4f} ms with the host"
+            f" ahead), bound {sb['bound_ms']:.6f} ms ({sb['bound_by']})"
+        ))
         mpx = w * h / 1e6
         _say("serve", (
             f"{int(w)}x{int(h)} T=64 {cs.plan.tile_id.shape[0]} items, compiled in"
             f" {compile_s:.2f}s; kernels {frame_ms:.3f} ms/frame"
             f" ({mpx / frame_ms * 1e3:.1f} Mpx/s), plain {plain_frame_ms:.3f}"
             f" ms/frame ({mpx / plain_frame_ms * 1e3:.1f} Mpx/s); max abs diff"
-            f" {serve_err:.3g}; last frame == first; launches {path_launches['serve']}"
+            f" {serve_err:.3g}; last frame == first; launches {path_launches['serve']};"
+            f" split (each kernel alone, CUDA events): prepass {spre_ms:.4f} ms,"
+            f" scene {sscene_ms:.4f} ms"
         ))
 
         # 7. the isolation-pass document: plan, kernels against plain, CLI
@@ -1039,9 +1102,11 @@ def main() -> int:
         results["scene_tiles"]["max_abs_err"] = max(results["scene_tiles"]["max_abs_err"], err)
         n_pass_items = int(((mplan.iparams[:, batch_exec.I_TEX] >= 0)
                             | (mplan.iparams[:, batch_exec.I_MASK] >= 0)).sum())
+        b = _scene_bound(mplan, big, pool)
         _say("scene", (
             f"passes main stream ({n_pass_items} tex/mask items): max abs diff {err:.3g};"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
+            f" ({b['bound_by']})"
         ))
         _say("pass_layers", _pass_breakdown(torch, prog, pool, vp_p))
 
@@ -1199,27 +1264,50 @@ def main() -> int:
             raise RuntimeError("the interpreter document must not lower whole")
 
         # 13. winding kernel against plain: every mask of one interpreter
-        # render, then random edge lists
-        with _Recorder(fused_exec, "winding", record=True) as rec:
+        # render (its batched entry and its one-list entry), one launch per
+        # mask and all in one batched launch; then random edge lists
+        with _Recorder(fused_exec, "winding_batch", record=True) as rec_batch, \
+                _Recorder(fused_exec, "winding", record=True) as rec_one:
             scene.render(swap, viewport=vp_i, device=dev)
-        calls = rec.calls
+        calls = [(torch.from_numpy(np.asarray(e, np.float32).reshape(-1, 4)).to(dev), hh, ww)
+                 for lists, shapes, _dev in rec_batch.calls
+                 for e, (hh, ww) in zip(lists, shapes)] + rec_one.calls
         if not calls:
             raise RuntimeError("the interpreter render rasterized no path mask")
-        worst = 0.0
+        worst, per_mask = 0.0, []
         for lines, hh, ww in calls:
             got = fused_exec.winding(lines, hh, ww)
             ref = coverage.winding(lines, hh, ww)
             torch.cuda.synchronize()
             worst = max(worst, float((got - ref).abs().max()))
+            per_mask.append(got)
         if not worst <= WINDING_TOL:
             raise RuntimeError(f"winding kernel disagrees on the render's masks: {worst}")
+        host_lists = [lines.cpu().numpy() for lines, _h, _w in calls]
+        shapes = [(hh, ww) for _l, hh, ww in calls]
+        before = fused_exec.winding.launches
+        batched = fused_exec.winding_batch(host_lists, shapes, dev)
+        torch.cuda.synchronize()
+        if fused_exec.winding.launches != before + 1:
+            raise RuntimeError("winding_batch made more than one launch")
+        if not all(torch.equal(a, b) for a, b in zip(batched, per_mask, strict=True)):
+            raise RuntimeError("batched winding fields differ from the per-mask kernel's")
 
         def all_masks(fn):
             for lines, hh, ww in calls:
                 fn(lines, hh, ww)
 
-        ms = _time_ms(torch, lambda: all_masks(fused_exec.winding), 10)
+        loop_ms = _time_ms(torch, lambda: all_masks(fused_exec.winding), 10)
+        loop_dev_ms = _device_ms(torch, lambda: all_masks(fused_exec.winding), 10)
+        uploaded = fused_exec.upload_winding_batch(host_lists, shapes, dev)
+        ms = _time_ms(torch, lambda: fused_exec.launch_winding_batch(uploaded), 20)
+        dev_ms = _device_ms(torch, lambda: fused_exec.launch_winding_batch(uploaded), 20)
+        call_ms = _time_ms(torch, lambda: fused_exec.winding_batch(host_lists, shapes, dev), 20)
         plain_ms = _time_ms(torch, lambda: all_masks(coverage.winding), 2)
+        fused_exec.reset_launch_counts()
+        scene.render(swap, viewport=vp_i, device=dev)
+        torch.cuda.synchronize()
+        render_launches = fused_exec.winding.launches
         sizes = sorted(hh * ww for _l, hh, ww in calls)
         edges = sorted(lines.shape[0] for lines, _h, _w in calls)
         results["winding"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
@@ -1228,8 +1316,13 @@ def main() -> int:
             f"{len(calls)} masks of one interpreter render (pixels median"
             f" {sizes[len(sizes) // 2]}, max {sizes[-1]}; edges median"
             f" {edges[len(edges) // 2]}, max {edges[-1]}): max abs diff {worst:.3g};"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound"
-            f" {results['winding']['bound_ms']:.4f} ms ({results['winding']['bound_by']})"
+            f" batched fields == per-mask fields; one batched launch {ms:.4f} ms"
+            f" ({dev_ms:.4f} ms with the host ahead; with packing and upload"
+            f" {call_ms:.4f} ms), one launch per mask {loop_ms:.4f} ms ({loop_dev_ms:.4f}"
+            f" ms with the host ahead), plain {plain_ms:.4f} ms, bound"
+            f" {results['winding']['bound_ms']:.6f} ms ({results['winding']['bound_by']});"
+            f" the render made {len(rec_batch.calls)} winding_batch and"
+            f" {len(rec_one.calls)} winding calls, {render_launches} launches"
         ))
         rng = np.random.default_rng(4)
         for segs, hh, ww in ((16, 200, 300), (256, 513, 777), (2048, 1024, 1024)):

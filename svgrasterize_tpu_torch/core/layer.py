@@ -300,7 +300,7 @@ def _as_channels(img, channels: int):
     return img.expand(*img.shape[:2], channels)
 
 
-def canvas_create(width: int, height: int, bg=None, device="cpu"):
+def canvas_create(width: int, height: int, bg=None, device="cuda"):
     """Create an (h, w, 4) canvas on `device` and the row/col render
     transform."""
     from .transform import Transform

@@ -53,11 +53,17 @@
 extern "C" {
 #endif
 
-// Winding field of each of `rows` padded edge lists.
-//   edges: (rows, width, 4) f32 tile-local (a0, a1, b0, b1)
-//   out:   (rows, tile, tile) f32
-// tile is 16, 32 or 64.
-int svgr_prepass_winding(const float* edges, float* out, int rows, int width,
+// classes one prepass launch takes (its arguments carry them by value)
+#define SVGR_PREPASS_MAX_CLASSES 32
+
+// Winding field of every row of n_classes classes of padded edge lists, in
+// one launch; edges, rows and widths are host arrays of n_classes entries.
+//   edges[c]: (rows[c], widths[c], 4) f32 tile-local (a0, a1, b0, b1)
+//   out:      (sum rows + 1, tile, tile) f32, the classes' rows in order,
+//             then a zero row
+// tile is 16, 32 or 64; 1 <= n_classes <= SVGR_PREPASS_MAX_CLASSES.
+int svgr_prepass_winding(const float* const* edges, const int* rows,
+                         const int* widths, int n_classes, float* out,
                          int tile, cudaStream_t stream);
 
 // Premultiplied canvas tiles of a (tile_id, z)-sorted work-item stream.
@@ -85,6 +91,20 @@ int svgr_scene_tiles(const float* lines, int segs, const float* carry,
 //   out:   (height, width) f32.
 int svgr_winding(const float* edges, int segs, float* out, int height,
                  int width, cudaStream_t stream);
+
+// columns of svgr_winding_batch's per-mask table: edge offset (in edges),
+// edge count, height, width, output offset (in floats), first block
+#define SVGR_WINDING_TABLE_COLS 6
+
+// Winding fields of n_masks edge lists in one launch, the same kernel as
+// svgr_winding, so each field equals that function's bit for bit.
+//   edges: (sum segs, 4) f32, each mask's list in its own pixel coordinates;
+//   table: (n_masks, SVGR_WINDING_TABLE_COLS) int32; a mask's blocks are
+//          ceil(width / 128) * ceil(height / 8) (0 for an empty mask), first
+//          block their exclusive prefix sum, blocks the total;
+//   out:   flat f32, each mask's (height, width) field at its output offset.
+int svgr_winding_batch(const float* edges, const int* table, int n_masks,
+                       int blocks, float* out, cudaStream_t stream);
 
 // Every out-span tile of a chunk of lone separable-blur filter parts.
 //   canvas (rows, tile, tile, 4) f32 premultiplied pass rows;

@@ -44,7 +44,11 @@ __device__ __forceinline__ float clamp_antideriv(float t) {
 }
 
 // Contribution of edge e to pixel (row, col).  Rows outside the edge's
-// extent have dy == 0 and contribute an exact zero, so they return early.
+// extent have dy == 0 and contribute an exact zero, so they return early;
+// so do pixels wholly left of the edge (g0, g1 <= 0: the antiderivatives
+// are 0, the mean an exact zero), which also spares the IEEE division its
+// slow path on a zero numerator.  A sum that starts at +0.f is the same
+// whether it adds these zeros (of either sign) or skips them.
 __device__ __forceinline__ float edge_contrib(const EdgeParams& e, float row,
                                               float col) {
   float lo = fmaxf(e.y_lo, row);
@@ -55,6 +59,7 @@ __device__ __forceinline__ float edge_contrib(const EdgeParams& e, float row,
   float xs1 = e.x_lo + e.slope * (hi - e.y_lo);
   float g0 = (col + 1.f) - xs0;
   float g1 = (col + 1.f) - xs1;
+  if (g0 <= 0.f && g1 <= 0.f) return 0.f;
   float den = g1 - g0;
   float mean;
   if (fabsf(den) > 1e-7f) {
@@ -63,4 +68,28 @@ __device__ __forceinline__ float edge_contrib(const EdgeParams& e, float row,
     mean = fminf(fmaxf(0.5f * (g0 + g1), 0.f), 1.f);
   }
   return e.sign * dy * mean;
+}
+
+// edge_contrib without branches, for a loop that evaluates several edges
+// at once (independent chains the scheduler can overlap): the same
+// operations wherever edge_contrib returns a value, and a zero wherever it
+// returns 0.f, so a sum adds the same bits.  Where the value is discarded
+// the division divides a nonzero denominator by itself.
+__device__ __forceinline__ float edge_contrib_flat(const EdgeParams& e,
+                                                   float row, float col) {
+  float lo = fmaxf(e.y_lo, row);
+  float hi = fminf(e.y_hi, row + 1.f);
+  float dy = fmaxf(hi - lo, 0.f);
+  float xs0 = e.x_lo + e.slope * (lo - e.y_lo);
+  float xs1 = e.x_lo + e.slope * (hi - e.y_lo);
+  float g0 = (col + 1.f) - xs0;
+  float g1 = (col + 1.f) - xs1;
+  float den = g1 - g0;
+  bool safe = fabsf(den) > 1e-7f;
+  bool zero = dy == 0.f || (g0 <= 0.f && g1 <= 0.f);
+  float den_s = safe ? den : 1.f;
+  float num = zero ? den_s : clamp_antideriv(g1) - clamp_antideriv(g0);
+  float q = num / den_s;
+  float mean = safe ? q : fminf(fmaxf(0.5f * (g0 + g1), 0.f), 1.f);
+  return zero ? 0.f : e.sign * dy * mean;
 }

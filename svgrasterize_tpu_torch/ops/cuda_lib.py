@@ -35,12 +35,16 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _SIGNATURES = {
-    "svgr_prepass_winding": (_vp, _vp, _int, _int, _int, _vp),
+    "svgr_prepass_winding": (
+        ctypes.POINTER(_vp), ctypes.POINTER(_int), ctypes.POINTER(_int), _int,
+        _vp, _int, _vp,
+    ),
     "svgr_scene_tiles": (
         _vp, _int, _vp, _vp, _int, _vp, _vp, _vp, _vp, _int,
         _vp, _vp, _vp, _vp, _vp, _int, _int, _vp, _int, _int, _vp,
     ),
     "svgr_winding": (_vp, _int, _vp, _int, _int, _vp),
+    "svgr_winding_batch": (_vp, _vp, _int, _int, _vp, _vp),
     "svgr_blur_chunk": (
         _vp, _int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
         _int, _int, _vp, _int, _vp,

@@ -11,11 +11,18 @@ raises.
 
 Each wrapper counts its kernel launches in its `launches` attribute, so a
 run can show that its main path went through the kernels
-(reset_launch_counts sets them all to 0).
+(reset_launch_counts sets them all to 0).  The whole-image winding kernel
+has two entries, `winding` (one list) and `winding_batch` (many lists,
+one launch); both count on `winding.launches`.
 """
 
 from __future__ import annotations
 
+import ctypes
+from collections.abc import Sequence
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from . import batch_exec, coverage, filter_batch
@@ -23,6 +30,13 @@ from .batch_exec import MAX_STOPS, N_FPARAMS, N_IPARAMS, SMALL_SEGS, DevicePlan
 
 # tile sizes the kernels are instantiated for (a template parameter)
 KERNEL_TILES = (16, 32, 64)
+# classes one prepass launch takes (csrc/kernels.h SVGR_PREPASS_MAX_CLASSES)
+PREPASS_MAX_CLASSES = 32
+# the whole-image winding kernel's output block (csrc/winding.cu) and the
+# columns of its batch table (SVGR_WINDING_TABLE_COLS)
+WINDING_BLOCK = (8, 128)
+WINDING_TABLE_COLS = 6
+_INT32_MAX = 2**31 - 1
 
 
 def _kernel_device(device: torch.device, what: str) -> bool:
@@ -65,6 +79,7 @@ def prepass_winding(arrays, t_size: int):
 
     arrays: per class (M_c, S_c, 4) f32 padded edge lists; the last row of
     the result is a zero scratch row.  Returns None when there are no rows.
+    On the card one launch computes every class and the zero row.
     """
     arrays = [a for a in arrays if a is not None and a.shape[0]]
     if not arrays:
@@ -74,6 +89,9 @@ def prepass_winding(arrays, t_size: int):
         return batch_exec._prepass_winding(arrays, t_size)
     if t_size not in KERNEL_TILES:
         raise ValueError(f"prepass_winding: tile {t_size} not in {KERNEL_TILES}")
+    n = len(arrays)
+    if n > PREPASS_MAX_CLASSES:
+        raise ValueError(f"prepass_winding: {n} classes > {PREPASS_MAX_CLASSES}")
     for i, a in enumerate(arrays):
         _check(a, f"class {i}", torch.float32, (None, None, 4), device)
     from . import cuda_lib
@@ -81,16 +99,14 @@ def prepass_winding(arrays, t_size: int):
     lib = cuda_lib.load()
     total = sum(a.shape[0] for a in arrays)
     out = torch.empty((total + 1, t_size, t_size), dtype=torch.float32, device=device)
-    out[total].zero_()
-    stream = _stream(device)
-    row = 0
-    for a in arrays:
-        rc = lib.svgr_prepass_winding(
-            a.data_ptr(), out[row].data_ptr(), a.shape[0], a.shape[1], t_size, stream
-        )
-        _raise_on(rc, "prepass_winding")
-        prepass_winding.launches += 1
-        row += a.shape[0]
+    rc = lib.svgr_prepass_winding(
+        (ctypes.c_void_p * n)(*(a.data_ptr() for a in arrays)),
+        (ctypes.c_int * n)(*(a.shape[0] for a in arrays)),
+        (ctypes.c_int * n)(*(a.shape[1] for a in arrays)),
+        n, out.data_ptr(), t_size, _stream(device),
+    )
+    _raise_on(rc, "prepass_winding")
+    prepass_winding.launches += 1
     return out
 
 
@@ -242,7 +258,10 @@ pool_rows.launches = 0
 
 def winding(lines, height: int, width: int):
     """Winding field (height, width) f32 of one edge list (S, 4) f32 in
-    image pixel coordinates (rows a0, a1, b0, b1; zero rows are padding)."""
+    image pixel coordinates (rows a0, a1, b0, b1; zero rows are padding).
+
+    The one-list case of winding_batch's kernel, on a list already on the
+    card: its one table entry travels by value, nothing is uploaded."""
     device = lines.device
     if not _kernel_device(device, "winding"):
         return coverage.winding(lines, height, width)
@@ -264,6 +283,120 @@ def winding(lines, height: int, width: int):
 
 
 winding.launches = 0
+
+
+class WindingBatch(NamedTuple):
+    """A batch of edge lists uploaded for one whole-image winding launch."""
+
+    edges: torch.Tensor  # (sum S_i, 4) f32, the lists back to back
+    table: torch.Tensor  # (n, WINDING_TABLE_COLS) int32, csrc/kernels.h
+    sizes: tuple  # (h_i, w_i) per mask
+    offsets: tuple  # each field's offset in the flat output
+    pixels: int  # the flat output's length
+    blocks: int  # the launch's blocks
+
+
+def _mask_table(counts, sizes):
+    """The (n, WINDING_TABLE_COLS) int64 table of a batch (edge offset,
+    edge count, height, width, output offset, first block) and its totals
+    (edges, pixels, blocks)."""
+    counts = np.asarray(counts, np.int64).reshape(-1)
+    hw = np.asarray(sizes, np.int64).reshape(-1, 2)
+    rows, cols = WINDING_BLOCK
+    pixels = hw[:, 0] * hw[:, 1]
+    blocks = -(-hw[:, 0] // rows) * -(-hw[:, 1] // cols)
+
+    def starts(x):
+        return np.cumsum(x) - x
+
+    table = np.stack([starts(counts), counts, hw[:, 0], hw[:, 1], starts(pixels),
+                      starts(blocks)], axis=1)
+    return table, (int(counts.sum()), int(pixels.sum()), int(blocks.sum()))
+
+
+def upload_winding_batch(edge_lists, sizes, device) -> WindingBatch:
+    """Pack edge lists and their table into one pinned host buffer and
+    upload it with one copy.
+
+    edge_lists: per mask an (S_i, 4) f32 array (numpy) in that mask's pixel
+    coordinates; sizes: per mask (h_i, w_i); device: a CUDA device.
+    """
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"upload_winding_batch: {device} is not a CUDA device")
+    sizes = tuple((int(h), int(w)) for h, w in sizes)
+    if len(edge_lists) != len(sizes):
+        raise ValueError("upload_winding_batch: one size per edge list")
+    if any(h < 0 or w < 0 for h, w in sizes):
+        raise ValueError(f"upload_winding_batch: bad sizes {sizes}")
+    lists = [np.asarray(e, np.float32).reshape(-1, 4) for e in edge_lists]
+    table, (segs, pixels, blocks) = _mask_table([e.shape[0] for e in lists], sizes)
+    n_edge = 4 * segs
+    if max(pixels, blocks, n_edge) > _INT32_MAX:
+        raise ValueError("upload_winding_batch: the batch exceeds 32-bit offsets")
+    host = torch.empty(n_edge + table.size, dtype=torch.float32, pin_memory=True)
+    buf = host.numpy()
+    if n_edge:
+        np.concatenate(lists, axis=0, out=buf[:n_edge].reshape(-1, 4))
+    buf[n_edge:].view(np.int32)[:] = table.reshape(-1)
+    dev_buf = host.to(device, non_blocking=True)
+    return WindingBatch(
+        edges=dev_buf[:n_edge].view(-1, 4),
+        table=dev_buf[n_edge:].view(torch.int32).view(-1, WINDING_TABLE_COLS),
+        sizes=sizes, offsets=tuple(int(o) for o in table[:, 4]),
+        pixels=pixels, blocks=blocks,
+    )
+
+
+class BatchFields(Sequence):
+    """The fields of one batch launch: item i is mask i's (h_i, w_i) field,
+    a view of the flat output made when it is read (so a launch costs the
+    host no per-mask work)."""
+
+    def __init__(self, out: torch.Tensor, batch: WindingBatch):
+        self.out, self._batch = out, batch
+
+    def __len__(self) -> int:
+        return len(self._batch.sizes)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        (h, w), o = self._batch.sizes[i], self._batch.offsets[i]
+        return self.out[o:o + h * w].view(h, w)
+
+
+def launch_winding_batch(batch: WindingBatch) -> BatchFields:
+    """One launch of the winding kernel over an uploaded batch."""
+    device = batch.edges.device
+    out = torch.empty(batch.pixels, dtype=torch.float32, device=device)
+    if batch.blocks:
+        from . import cuda_lib
+
+        lib = cuda_lib.load()
+        rc = lib.svgr_winding_batch(
+            batch.edges.data_ptr(), batch.table.data_ptr(), len(batch.sizes),
+            batch.blocks, out.data_ptr(), _stream(device),
+        )
+        _raise_on(rc, "winding_batch")
+        winding.launches += 1
+    return BatchFields(out, batch)
+
+
+def winding_batch(edge_lists, sizes, device):
+    """Winding fields (h_i, w_i) f32 of many edge lists (S_i, 4) f32, each
+    in its own image pixel coordinates (zero rows are padding).
+
+    On a CUDA device: the lists and a per-mask table travel in one pinned
+    upload, and one launch of the winding kernel computes every field (the
+    same kernel as `winding`, so each field equals its one-list result
+    bit for bit), returned as BatchFields.  On the CPU: the plain version,
+    coverage.winding per list, returned as a list.
+    """
+    device = torch.device(device)
+    if not _kernel_device(device, "winding_batch"):
+        return [coverage.winding(torch.as_tensor(np.asarray(e, np.float32)).reshape(-1, 4),
+                                 int(h), int(w))
+                for e, (h, w) in zip(edge_lists, sizes, strict=True)]
+    return launch_winding_batch(upload_winding_batch(edge_lists, sizes, device))
 
 KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding)
 

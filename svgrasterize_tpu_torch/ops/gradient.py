@@ -21,7 +21,7 @@ SPREAD_REPEAT = "repeat"
 SPREAD_REFLECT = "reflect"
 
 
-def pixel_grid(height: int, width: int, offset0: float, offset1: float, device="cpu"):
+def pixel_grid(height: int, width: int, offset0: float, offset1: float, device="cuda"):
     """Pixel-center coordinates (h, w, 2) for a viewport at (offset0, offset1)."""
     r = torch.arange(height, dtype=torch.float32, device=device)[:, None].expand(height, width)
     c = torch.arange(width, dtype=torch.float32, device=device)[None, :].expand(height, width)

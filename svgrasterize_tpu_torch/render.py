@@ -1,8 +1,10 @@
 """Path rasterization for the interpreter: a Path is flattened on the host,
-its winding field computed on the device (the whole-image winding kernel,
-ops/fused_exec.winding), mapped by its fill rule, painted (solid, gradient,
-pattern) and returned as a Layer.  The twin of the JAX package's render.py
-(parity: Path.mask / Path.fill of the reference, svgrasterize.py:922-1103).
+its winding field computed on the device (the whole-image winding kernel:
+one launch per render's batch of masks, MaskBatch and
+ops/fused_exec.winding_batch, or ops/fused_exec.winding for a mask alone),
+mapped by its fill rule, painted (solid, gradient, pattern) and returned as
+a Layer.  The twin of the JAX package's render.py (parity: Path.mask /
+Path.fill of the reference, svgrasterize.py:922-1103).
 
 The JAX package pads every mask to a bucketed shape and its edge list to a
 power-of-two count to bound XLA recompiles; only mask[:h, :w] ever leaves
@@ -13,6 +15,8 @@ edge count.  Every tensor made here lives on `device`.
 from __future__ import annotations
 
 import warnings
+from collections import deque
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,11 +35,19 @@ def _f32(values, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(values, DEVICE_FLOAT), device=device)
 
 
-def _mask_padded(path, transform: Transform, fill_rule: str | None, viewport, device):
-    """Rasterize a path's coverage over its bbox (clamped to the viewport).
+class MaskGeometry(NamedTuple):
+    """The host half of a path mask: its device-space edges shifted to the
+    mask's origin, where the mask sits, its size and the path's hull."""
 
-    Returns (mask (h, w, 1) on device, offset, (h, w), hull) or None.
-    """
+    edges: np.ndarray  # (S, 4) f32 rows (a0, a1, b0, b1)
+    offset: tuple  # (row, col) of the mask's origin
+    size: tuple  # (h, w)
+    hull: ConvexHull
+
+
+def mask_geometry(path, transform: Transform, viewport) -> MaskGeometry | None:
+    """Flatten a path and place its mask over its bbox (clamped to the
+    viewport); None when the mask is empty."""
     lines = path.flatten(transform, FLATNESS)
     if lines.size == 0:
         return None
@@ -49,17 +61,106 @@ def _mask_padded(path, transform: Transform, fill_rule: str | None, viewport, de
     h, w = int(max0 - min0), int(max1 - min1)
     if h <= 0 or w <= 0:
         return None
-
     shifted = lines.reshape(-1, 4) - np.array([min0, min1, min0, min1])
-    wind = fused_exec.winding(_f32(shifted, device), h, w)
+    return MaskGeometry(np.asarray(shifted, DEVICE_FLOAT), (int(min0), int(min1)), (h, w),
+                        ConvexHull(lines))
+
+
+class MaskBatch:
+    """The path masks of one interpreter render, rasterized together.
+
+    Scene.render adds the host half (mask_geometry) of every mask it can
+    foresee before anything renders; the first take() of a mask launches
+    the winding kernel once for its whole batch (fused_exec.winding_batch).
+    A batch holds at most BATCH_PIXELS field pixels, so a render of many
+    large masks makes a few launches instead of holding every field at
+    once.  take() hands out each added mask once; a mask nobody added
+    (take returns None) is rasterized alone.
+    """
+
+    BATCH_PIXELS = 1 << 26  # 256 MiB of f32 fields
+
+    def __init__(self, device):
+        self.device = device
+        self.added = self.taken = 0
+        self._queues: dict = {}  # key -> deque of (geometry, (batch, index))
+        # per batch [geometries, fields (None until launched), fields not
+        # yet taken]
+        self._batches: list = []
+        self._pixels = 0  # field pixels of the newest batch
+
+    @staticmethod
+    def key(node, transform: Transform, viewport):
+        """A mask's key: its scene node, transform and viewport."""
+        return (id(node), transform.m.tobytes(),
+                None if viewport is None else tuple(viewport))
+
+    def add(self, key, geometry: MaskGeometry | None) -> None:
+        """Queue a mask under key; geometry None records an empty mask."""
+        slot = None
+        if geometry is not None:
+            h, w = geometry.size
+            if not self._batches or self._pixels + h * w > self.BATCH_PIXELS:
+                self._batches.append([[], None, 0])
+                self._pixels = 0
+            batch = self._batches[-1]
+            slot = (len(self._batches) - 1, len(batch[0]))
+            batch[0].append(geometry)
+            batch[2] += 1
+            self._pixels += h * w
+        self._queues.setdefault(key, deque()).append((geometry, slot))
+        self.added += 1
+
+    def take(self, key):
+        """(geometry, winding field) of the next mask added under key, both
+        None for an empty mask; None when no mask is waiting there."""
+        queue = self._queues.get(key)
+        if not queue:
+            return None
+        geometry, slot = queue.popleft()
+        self.taken += 1
+        if slot is None:
+            return None, None
+        b, i = slot
+        batch = self._batches[b]
+        if batch[1] is None:
+            geometries = batch[0]
+            batch[1] = fused_exec.winding_batch(
+                [g.edges for g in geometries], [g.size for g in geometries], self.device
+            )
+        field = batch[1][i]
+        batch[2] -= 1
+        if not batch[2]:  # every field handed out: the batch holds no memory
+            batch[0] = batch[1] = None
+        return geometry, field
+
+
+def _mask_padded(path, transform: Transform, fill_rule: str | None, viewport, device,
+                 gathered=None):
+    """Rasterize a path's coverage over its bbox (clamped to the viewport).
+
+    gathered: what MaskBatch.take returned for this mask, or None to
+    flatten and rasterize it here (one launch of its own).  Returns (mask
+    (h, w, 1) on device, offset, (h, w), hull) or None.
+    """
+    if gathered is None:
+        geometry, wind = mask_geometry(path, transform, viewport), None
+    else:
+        geometry, wind = gathered
+    if geometry is None:
+        return None
+    if wind is None:
+        wind = fused_exec.winding(_f32(geometry.edges, device), *geometry.size)
     mask = fill_rule_ops.apply(wind, fill_rule)[..., None]
-    return mask, (int(min0), int(min1)), (h, w), ConvexHull(lines)
+    return mask, geometry.offset, geometry.size, geometry.hull
 
 
 def path_mask(path, transform: Transform, fill_rule: str | None = None, viewport=None,
-              device="cuda"):
-    """Render a path as an alpha-only Layer. Returns (Layer, ConvexHull) or None."""
-    result = _mask_padded(path, transform, fill_rule, viewport, device)
+              device="cuda", gathered=None):
+    """Render a path as an alpha-only Layer. Returns (Layer, ConvexHull) or None.
+
+    gathered: the mask's MaskBatch.take result, when a render gathered it."""
+    result = _mask_padded(path, transform, fill_rule, viewport, device, gathered)
     if result is None:
         return None
     mask, offset, _size, hull = result
@@ -74,11 +175,14 @@ def path_fill(
     viewport=None,
     linear_rgb: bool = True,
     device="cuda",
+    gathered=None,
 ):
-    """Fill a path with a paint server. Returns (Layer, ConvexHull) or None."""
+    """Fill a path with a paint server. Returns (Layer, ConvexHull) or None.
+
+    gathered: the mask's MaskBatch.take result, when a render gathered it."""
     if paint is None:
         return None
-    result = _mask_padded(path, transform, fill_rule, viewport, device)
+    result = _mask_padded(path, transform, fill_rule, viewport, device, gathered)
     if result is None:
         return None
     mask, offset, (h, w), hull = result

@@ -2328,30 +2328,31 @@ def crop_layer_to_hull(layer: Layer, hull: ConvexHull, viewport) -> Layer:
 
 
 def render_group_hybrid(children, transform: Transform, viewport, linear_rgb: bool,
-                        *, tile: int = DEFAULT_TILE, device="cuda"):
+                        *, tile: int = DEFAULT_TILE, device="cuda", masks):
     """Render a group's children, batching maximal runs of lowerable ones.
 
     Returns a list of (Layer, hull) results in paint order (callers compose
     with OVER); runs render through render_fast at `tile` on `device`,
-    non-batchable children through Scene.render.
+    non-batchable children through the interpreter (Scene._render), which
+    takes their path masks from `masks`, the render's render.MaskBatch.
     """
     from .scene import Scene
 
     results: list = []
     run: list = []
-    sub = dict(tile=tile, device=device)
+    sub = dict(tile=tile, device=device, masks=masks)
 
     def flush():
         if not run:
             return
         group = Scene.group(run) if len(run) > 1 else run[0]
-        rendered = render_fast(group, transform, viewport, linear_rgb, **sub)
+        rendered = render_fast(group, transform, viewport, linear_rgb, tile=tile, device=device)
         if rendered is not None:
             layer, hull = rendered
             results.append((crop_layer_to_hull(layer, hull, viewport), hull))
         else:  # predicate was optimistic; render the run via the interpreter
             for child in run:
-                out = child.render(transform, viewport=viewport, linear_rgb=linear_rgb, **sub)
+                out = child._render(transform, False, viewport, linear_rgb, **sub)
                 if out is not None:
                     results.append(out)
         run.clear()
@@ -2361,7 +2362,7 @@ def render_group_hybrid(children, transform: Transform, viewport, linear_rgb: bo
             run.append(child)
             continue
         flush()
-        out = child.render(transform, viewport=viewport, linear_rgb=linear_rgb, **sub)
+        out = child._render(transform, False, viewport, linear_rgb, **sub)
         if out is not None:
             results.append(out)
     flush()

@@ -97,27 +97,40 @@ class Scene(tuple):
         Groups rendered with a viewport batch their maximal runs of
         lowerable children through render_plan.render_group_hybrid (the
         batched path at `tile`), as the JAX package's interpreter does.
+        Before anything renders, every path mask whose transform and
+        viewport are known up front is gathered (_gather_masks) and the
+        gathered masks are rasterized together, one winding launch per
+        batch (render.MaskBatch); masks that depend on a rendered hull
+        (bounding-box clip and mask content) are rasterized alone.
         """
+        from .render import MaskBatch
+
+        masks = MaskBatch(device)
+        _gather_masks(self, transform, mask_only, viewport, linear_rgb, masks)
+        return self._render(transform, mask_only, viewport, linear_rgb, tile=tile,
+                            device=device, masks=masks)
+
+    def _render(self, transform: Transform, mask_only: bool, viewport, linear_rgb: bool,
+                *, tile: int, device, masks):
+        """Scene.render's recursion; masks: the render's render.MaskBatch."""
+        from . import render
+
         kind, args = self
-        sub = dict(tile=tile, device=device)
+        sub = dict(tile=tile, device=device, masks=masks)
 
-        if kind == RENDER_FILL:
-            path, paint, fill_rule = args
+        if kind in (RENDER_FILL, RENDER_STROKE):
+            path, paint = args[:2]
+            if not mask_only and paint is None:
+                return None
+            gathered = masks.take(render.MaskBatch.key(self, transform, viewport))
+            fill_rule = args[2] if kind == RENDER_FILL else None
+            if kind == RENDER_STROKE and gathered is None:
+                path = path.stroke(*args[2:])
             if mask_only:
-                return path.mask(transform, fill_rule=fill_rule, viewport=viewport,
-                                 device=device)
-            return path.fill(
-                transform, paint, fill_rule=fill_rule, viewport=viewport,
-                linear_rgb=linear_rgb, device=device,
-            )
-
-        if kind == RENDER_STROKE:
-            path, paint, width, linecap, linejoin = args
-            outline = path.stroke(width, linecap, linejoin)
-            if mask_only:
-                return outline.mask(transform, viewport=viewport, device=device)
-            return outline.fill(transform, paint, viewport=viewport,
-                                linear_rgb=linear_rgb, device=device)
+                return render.path_mask(path, transform, fill_rule, viewport, device,
+                                        gathered)
+            return render.path_fill(path, transform, paint, fill_rule, viewport,
+                                    linear_rgb, device, gathered)
 
         if kind == RENDER_GROUP:
             from . import render_plan
@@ -131,7 +144,7 @@ class Scene(tuple):
                 results = [
                     r
                     for child in args
-                    if (r := child.render(transform, mask_only, viewport, linear_rgb, **sub))
+                    if (r := child._render(transform, mask_only, viewport, linear_rgb, **sub))
                     is not None
                 ]
             if not results:
@@ -145,7 +158,7 @@ class Scene(tuple):
 
         if kind == RENDER_OPACITY:
             target, opacity = args
-            result = target.render(transform, mask_only, viewport, linear_rgb, **sub)
+            result = target._render(transform, mask_only, viewport, linear_rgb, **sub)
             if result is None:
                 return None
             layer, hull = result
@@ -153,13 +166,13 @@ class Scene(tuple):
 
         if kind == RENDER_CLIP:
             target, clip_scene, bbox_units = args
-            result = target.render(transform, mask_only, viewport, linear_rgb, **sub)
+            result = target._render(transform, mask_only, viewport, linear_rgb, **sub)
             if result is None:
                 return None
             image, hull = result
             if bbox_units:
                 transform = hull.bbox_transform(transform)
-            clip_result = clip_scene.render(transform, True, viewport, linear_rgb, **sub)
+            clip_result = clip_scene._render(transform, True, viewport, linear_rgb, **sub)
             if clip_result is None:
                 return None
             clip_mask, _ = clip_result
@@ -170,13 +183,13 @@ class Scene(tuple):
 
         if kind == RENDER_MASK:
             target, mask_scene, bbox_units = args
-            result = target.render(transform, mask_only, viewport, linear_rgb, **sub)
+            result = target._render(transform, mask_only, viewport, linear_rgb, **sub)
             if result is None:
                 return None
             image, hull = result
             if bbox_units:
                 transform = hull.bbox_transform(transform)
-            mask_result = mask_scene.render(transform, mask_only, viewport, linear_rgb, **sub)
+            mask_result = mask_scene._render(transform, mask_only, viewport, linear_rgb, **sub)
             if mask_result is None:
                 return None
             mask_layer, _ = mask_result
@@ -193,11 +206,11 @@ class Scene(tuple):
 
         if kind == RENDER_TRANSFORM:
             target, inner = args
-            return target.render(transform @ inner, mask_only, viewport, linear_rgb, **sub)
+            return target._render(transform @ inner, mask_only, viewport, linear_rgb, **sub)
 
         if kind == RENDER_FILTER:
             target, flt = args
-            result = target.render(transform, mask_only, viewport, linear_rgb, **sub)
+            result = target._render(transform, mask_only, viewport, linear_rgb, **sub)
             if result is None:
                 return None
             image, hull = result
@@ -243,6 +256,44 @@ class Scene(tuple):
         out = io.StringIO()
         _repr_rec(self, out, 0)
         return out.getvalue()[:-1]
+
+
+def _gather_masks(scene: Scene, transform: Transform, mask_only: bool, viewport,
+                  linear_rgb: bool, masks) -> None:
+    """Add to masks (a render.MaskBatch) the geometry of every FILL and
+    STROKE mask that Scene._render will rasterize under this node, in the
+    order it will: the walk follows _render through groups, transforms,
+    opacity, filter, clip and mask targets, and clip / mask content in user
+    units.  It skips the children render_group_hybrid lowers (the same
+    can_lower test under the same conditions) and content in bounding-box
+    units, whose transform depends on the target's rendered hull."""
+    from . import render_plan
+    from .render import MaskBatch, mask_geometry
+
+    kind, args = scene
+    if kind in (RENDER_FILL, RENDER_STROKE):
+        path, paint = args[:2]
+        if mask_only or paint is not None:  # path_fill draws nothing without a paint
+            if kind == RENDER_STROKE:
+                path = path.stroke(*args[2:])
+            masks.add(MaskBatch.key(scene, transform, viewport),
+                      mask_geometry(path, transform, viewport))
+    elif kind == RENDER_GROUP:
+        hybrid = not mask_only and viewport is not None and render_plan.HYBRID_ENABLED
+        for child in args:
+            if not (hybrid and render_plan.can_lower(child, linear_rgb)):
+                _gather_masks(child, transform, mask_only, viewport, linear_rgb, masks)
+    elif kind in (RENDER_OPACITY, RENDER_FILTER):
+        _gather_masks(args[0], transform, mask_only, viewport, linear_rgb, masks)
+    elif kind in (RENDER_CLIP, RENDER_MASK):
+        target, content, bbox_units = args
+        _gather_masks(target, transform, mask_only, viewport, linear_rgb, masks)
+        if not bbox_units:
+            content_mask_only = True if kind == RENDER_CLIP else mask_only
+            _gather_masks(content, transform, content_mask_only, viewport, linear_rgb, masks)
+    elif kind == RENDER_TRANSFORM:
+        target, inner = args
+        _gather_masks(target, transform @ inner, mask_only, viewport, linear_rgb, masks)
 
 
 def _crop_to_content(layer: Layer, hull: ConvexHull) -> Layer:

@@ -4,9 +4,11 @@ The port's plain PyTorch versions of the two CUDA kernels (prepass winding
 and scene tiles, svgrasterize_tpu_torch/ops/batch_exec.py) run here on the
 CPU, fed the exact plan the JAX package lowered (plan_from_lowered).  JAX
 runs on its CPU backend twice: SVGR_FUSED=0 is its XLA executor,
-SVGR_FUSED=interp its Pallas kernels in interpret mode.  The kernels
-themselves only run on a CUDA card, where chip_smoke.py holds them against
-these plain versions.
+SVGR_FUSED=interp its Pallas kernels in interpret mode.  The prepass is
+also held on several classes in one call, and its kernel's band-culling
+rule is checked to change no bit of the field.  The kernels themselves only
+run on a CUDA card, where chip_smoke.py holds them against these plain
+versions.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from svgrasterize_tpu.ops import batch_exec as j_batch_exec
 from svgrasterize_tpu.ops import fused_exec as j_fused_exec
 
 from svgrasterize_tpu_torch.ops import batch_exec, fused_exec
+from svgrasterize_tpu_torch.ops import coverage as t_cov
 from svgrasterize_tpu_torch.render_plan import (
     _band_split,
     execute_lowered,
@@ -69,6 +72,82 @@ def test_prepass_matches_jax(tile, monkeypatch):
         tuple(jnp.asarray(c) for c in classes), tile))
     assert np.abs(got.numpy() - xla).max() <= PREPASS_TOL
     assert np.abs(got.numpy() - interp).max() <= PREPASS_TOL
+
+
+def _multiclass(rng, tile: int) -> list:
+    """Classes of widths 16-1024 as one prepass call gets them; each has an
+    all-zero padded row, one class is nothing but padding rows."""
+    classes = []
+    for width, rows in ((16, 8), (64, 16), (256, 8), (1024, 8)):
+        arr = _band_edges(rng, rows, width, tile)
+        arr[rows // 2] = 0.0
+        classes.append(arr)
+    classes.append(np.zeros((8, 32, 4), np.float32))
+    return classes
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_prepass_multiclass_matches_jax(tile, monkeypatch):
+    """Several classes in one call (the kernel's one launch per call)."""
+    classes = _multiclass(np.random.default_rng(100 + tile), tile)
+    got = batch_exec._prepass_winding([torch.from_numpy(c) for c in classes], tile)
+    fused_exec.reset_launch_counts()
+    wrapped = fused_exec.prepass_winding([torch.from_numpy(c) for c in classes], tile)
+    assert fused_exec.prepass_winding.launches == 0  # CPU tensors: the plain version
+    assert torch.equal(got, wrapped)
+    starts = np.cumsum([0] + [c.shape[0] for c in classes])
+    assert got.shape == (starts[-1] + 1, tile, tile)
+    # the padded row of each class, the all-padding class, the scratch row
+    zero_rows = [s + c.shape[0] // 2 for s, c in zip(starts, classes)]
+    zero_rows += list(range(starts[-2], starts[-1] + 1))
+    assert float(got[zero_rows].abs().max()) == 0.0
+    assert float(got[: starts[-2]].abs().max()) > 0.0
+
+    xla = np.asarray(j_batch_exec._prepass_winding(
+        tuple(jnp.asarray(c) for c in classes), tile))
+    monkeypatch.setenv("SVGR_FUSED", "interp")
+    interp = np.asarray(j_fused_exec.prepass_winding(
+        tuple(jnp.asarray(c) for c in classes), tile))
+    assert np.abs(got.numpy() - xla).max() <= PREPASS_TOL
+    assert np.abs(got.numpy() - interp).max() <= PREPASS_TOL
+
+
+def _sequential(per_edge, keep):
+    """Sum of the kept per-edge fields one edge at a time, in edge order:
+    the prepass kernel's summation order."""
+    acc = torch.zeros(per_edge.shape[1:], dtype=torch.float32)
+    for e in np.flatnonzero(keep):
+        acc = acc + per_edge[e]
+    return acc
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_prepass_band_culling_is_exact(tile):
+    """The prepass kernel's culling rule: a band of 8 rows sums only the
+    edges whose [y_lo, y_hi] meets it (and a warp only those meeting its
+    row), padding and horizontal edges dropped.  Every dropped edge gives
+    an exact 0.0 there, so the culled sum equals the unculled one bit for
+    bit when both add in edge order."""
+    rng = np.random.default_rng(7 + tile)
+    edges = _band_edges(rng, 1, 256, tile)[0]
+    raw = rng.uniform(-3, tile + 3, (40, 4)).astype(np.float32)  # not band-split
+    raw[::5, 2] = raw[::5, 0]  # horizontal
+    edges = np.concatenate([edges[:160], raw, np.zeros((8, 4), np.float32)])
+    per_edge = t_cov.winding_fields(torch.from_numpy(edges)[:, None], tile, tile)
+    a0, b0 = edges[:, 0], edges[:, 2]
+    y_lo, y_hi = np.minimum(a0, b0), np.maximum(a0, b0)
+    live = a0 != b0  # sign != 0: padding rows are horizontal
+    unculled = _sequential(per_edge, np.ones(len(edges), bool))
+    for r0 in range(0, tile, 8):
+        keep = live & (y_hi > r0) & (y_lo < r0 + 8)
+        assert float(per_edge[~keep, r0:r0 + 8].abs().max()) == 0.0
+        band = _sequential(per_edge, keep)[r0:r0 + 8]
+        assert torch.equal(band, unculled[r0:r0 + 8])
+    for r in range(tile):
+        misses = (y_hi <= r) | (y_lo >= r + 1)
+        assert float(per_edge[misses, r].abs().max()) == 0.0
+    plain = batch_exec._prepass_winding([torch.from_numpy(edges)[None]], tile)[0]
+    assert float((plain - unculled).abs().max()) <= PREPASS_TOL
 
 
 def _jax_canvas(svg, tile, mode, monkeypatch):

@@ -2,9 +2,11 @@
 
 The plain whole-image winding (ops/coverage.winding, the plain version of
 csrc/winding.cu) against JAX coverage.winding and the Pallas winding kernel
-in interpret mode; fill rules and gradient fills; path_mask / path_fill;
+in interpret mode; the batched entry (fused_exec.winding_batch) equal to
+per-mask fields; fill rules and gradient fills; path_mask / path_fill;
 RasterImage.render; Scene.render with group batching off (a per-path
-oracle) and on (render_group_hybrid, JAX under SVGR_FUSED=0); pattern and
+oracle) and on (render_group_hybrid, JAX under SVGR_FUSED=0), and the masks
+it gathers into one winding_batch call per render; pattern and
 image lowering, its executor, and the CLI.  f32 fields agree within 1e-5
 (the same closed forms, summed in another order); lowered arrays are
 bit-identical except the pattern atlas and the collapse fields that gather
@@ -292,12 +294,63 @@ def test_winding_matches_jax_and_pallas(name, interpret_pallas):
         assert abs(abs(got[16, 16]) - 1.0) < 1e-6 and abs(got[4, 4]) < 1e-6
 
 
+def _batch_masks():
+    """Edge lists and sizes a batch may hold: an empty list, a 1-row mask,
+    widths that are not multiples of 128, a 0 x w and an h x 0 mask."""
+    lines = [_random_lines(21, 48, -10, 300), np.zeros((0, 4), np.float32),
+             _random_lines(22, 9, -2, 40), _random_lines(23, 30, 0, 40),
+             _random_lines(24, 5, 0, 8), _random_lines(25, 17, -5, 150),
+             _random_lines(26, 8, 0, 9)]
+    sizes = [(60, 257), (12, 20), (1, 37), (0, 50), (40, 0), (130, 129), (7, 3)]
+    return lines, sizes
+
+
+def test_winding_batch_matches_per_mask_and_jax():
+    lines, sizes = _batch_masks()
+    fused_exec.reset_launch_counts()
+    got = fused_exec.winding_batch(lines, sizes, "cpu")
+    assert fused_exec.winding.launches == 0  # the CPU takes the plain version
+    assert [tuple(f.shape) for f in got] == sizes
+    for field, e, (h, w) in zip(got, lines, sizes):
+        assert torch.equal(field, t_cov.winding(torch.from_numpy(e), h, w))
+        if h and w:
+            _assert_close(field.numpy(), j_cov.winding(jnp.asarray(e.reshape(-1, 4)), h, w))
+    # the kernel's table: each mask's edges, field and blocks follow the last
+    table, totals = fused_exec._mask_table([len(e) for e in lines], sizes)
+    rows, cols = fused_exec.WINDING_BLOCK
+    blocks = [-(-h // rows) * -(-w // cols) for h, w in sizes]
+    assert totals == (sum(len(e) for e in lines), sum(h * w for h, w in sizes), sum(blocks))
+    assert table.shape == (len(sizes), fused_exec.WINDING_TABLE_COLS)
+    assert table[:, 0].tolist() == np.cumsum([0] + [len(e) for e in lines])[:-1].tolist()
+    assert table[:, 1].tolist() == [len(e) for e in lines]
+    assert table[:, 2:4].tolist() == [list(s) for s in sizes]
+    assert table[:, 4].tolist() == np.cumsum([0] + [h * w for h, w in sizes])[:-1].tolist()
+    assert table[:, 5].tolist() == np.cumsum([0] + blocks)[:-1].tolist()
+    assert blocks[3] == blocks[4] == 0 and blocks[5] == 17 * 2
+
+
 @pytest.mark.parametrize("rule", ["nonzero", "evenodd"])
 def test_fill_rule_matches_jax(rule):
     wind = np.random.default_rng(5).uniform(-3, 3, (40, 50)).astype(np.float32)
     wind[::7] = 1e-7  # under the floor
     got = t_fill_rule.apply(torch.from_numpy(wind), rule).numpy()
     _assert_close(got, j_fill_rule.apply(jnp.asarray(wind), rule))
+
+
+@pytest.mark.parametrize("helper", ["canvas_create", "pixel_grid"])
+def test_device_helpers_default_to_the_card(helper):
+    """Called without a device, both helpers ask for the card: on a host
+    without one they raise, they never quietly return a CPU tensor."""
+    from svgrasterize_tpu_torch.core.layer import canvas_create
+
+    call = {"canvas_create": lambda **kw: canvas_create(6, 4, **kw)[0],
+            "pixel_grid": lambda **kw: t_grad.pixel_grid(4, 6, 0.0, 0.0, **kw)}[helper]
+    assert call(device="cpu").shape[:2] == (4, 6)
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
 
 
 def _stop_arrays(k: int):
@@ -433,6 +486,66 @@ def test_hybrid_render_matches_jax(name, monkeypatch):
     monkeypatch.setenv("SVGR_TILE", "32")
     svg = SCENE_DOCS[name]
     _assert_close(_torch_canvas(svg), _jax_canvas(svg))
+
+
+# documents whose path masks Scene.render gathers: (svg, hybrid batching on,
+# winding_batch calls = renders with a gathered mask, lone winding calls,
+# masks gathered over all renders)
+GATHER_DOCS = {
+    "group": ("""<svg xmlns='http://www.w3.org/2000/svg' width='96' height='64'>
+      <g transform='translate(2 3)'><rect x='4' y='4' width='30' height='20' fill='#d04020'/>
+      <circle cx='60' cy='30' r='16' fill='none' stroke='#2060c0' stroke-width='4'/>
+      <path d='M10 50 L40 30 L70 58 Z' fill='#20a040' stroke='black'/></g>
+      <rect x='200' y='200' width='4' height='4' fill='red'/></svg>""", False, 1, 0, 5),
+    "user_clip": ("""<svg xmlns='http://www.w3.org/2000/svg' width='96' height='64'>
+      <defs><clipPath id='c'><circle cx='40' cy='30' r='22'/>
+      <rect x='60' y='4' width='20' height='20'/></clipPath></defs>
+      <g clip-path='url(#c)' opacity='0.7'><rect x='2' y='2' width='90' height='58' fill='#2060c0'/>
+      <circle cx='50' cy='30' r='12' fill='#d04020'/></g></svg>""", False, 1, 0, 4),
+    "bbox_clip": ("""<svg xmlns='http://www.w3.org/2000/svg' width='96' height='64'>
+      <defs><clipPath id='c' clipPathUnits='objectBoundingBox'>
+      <circle cx='0.5' cy='0.5' r='0.4'/></clipPath></defs>
+      <rect x='10' y='6' width='70' height='50' fill='#2060c0' clip-path='url(#c)'/>
+      <circle cx='20' cy='20' r='10' fill='#d04020'/></svg>""", False, 1, 1, 2),
+    "pattern": (PATTERNS["pattern_paints"], False, 3, 0, 3 + 2 + 2),
+    "hybrid": (INTERP_ONLY["stroke_in_clip"], True, 1, 0, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GATHER_DOCS))
+def test_render_gathers_masks(name, monkeypatch):
+    """Scene.render rasterizes every mask it can foresee in one
+    winding_batch call per render (a pattern tile's sub-scene render is a
+    render of its own), uses each gathered mask once, and rasterizes alone
+    only what depends on a rendered hull; the image matches JAX."""
+    svg, hybrid, n_batch, n_lone, n_gathered = GATHER_DOCS[name]
+    monkeypatch.setattr(jrp, "HYBRID_ENABLED", hybrid)
+    monkeypatch.setattr(trp, "HYBRID_ENABLED", hybrid)
+    monkeypatch.setenv("SVGR_FUSED", "0")
+    monkeypatch.setenv("SVGR_TILE", "32")
+    calls = {"winding_batch": 0, "winding": 0}
+    for fn in calls:
+        orig = getattr(fused_exec, fn)
+
+        def counted(*args, _orig=orig, _fn=fn, **kw):
+            calls[_fn] += 1
+            return _orig(*args, **kw)
+
+        monkeypatch.setattr(fused_exec, fn, counted)
+    batches = []
+
+    class Recorded(t_render.MaskBatch):
+        def __init__(self, device):
+            super().__init__(device)
+            batches.append(self)
+
+    monkeypatch.setattr(t_render, "MaskBatch", Recorded)
+    got = _torch_canvas(svg)
+    assert calls == {"winding_batch": n_batch, "winding": n_lone}
+    assert sum(b.added for b in batches) == n_gathered
+    assert all(b.taken == b.added for b in batches)
+    assert sum(bool(b.added) for b in batches) == n_batch
+    _assert_close(got, _jax_canvas(svg))
 
 
 @pytest.mark.parametrize("name", sorted(INTERP_ONLY))
