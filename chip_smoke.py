@@ -7,11 +7,15 @@ sm_90a):
     python3 chip_smoke.py
 
 It builds the five hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
-with nvcc (one process per source, in parallel), holds each against its
-plain PyTorch version on the card (the prepass on random multi-class calls,
-one launch each; the winding kernel on one interpreter render's masks, one
-launch per mask and all of them in one batched launch, which must agree bit
-for bit), then drives the port's main paths: the
+with nvcc (one process per source, in parallel) and prints each compiled
+kernel's registers and spills, holds each against its plain PyTorch version
+on the card (the prepass on random multi-class calls, one launch each; the
+scene kernel on random plans reaching every item kind at T = 16, 32 and 64;
+the blur-chunk kernel on a document level's chunks and on random chunks,
+each alone and packed into one level, one launch each; the winding kernel
+on one interpreter render's masks, one launch per mask and all of them in
+one batched launch, which must agree bit for bit), then drives the port's
+main paths: the
 CLI renders a generated pass-free 1,536-draw document at 1488 x 1488 and a
 compiled scene of it serves 5 frames at 3840 x 3840; the CLI renders a
 generated document full of isolation passes (group opacity, masks, clips,
@@ -616,8 +620,8 @@ def _prepass_bound(bigs, t: int) -> dict:
 
 
 def _scene_bound(plan, big, pool=None) -> dict:
-    """Bound of one scene-kernel launch on a plan.  Bytes: the live items'
-    parameters, carries and live inline edges, the stop tables of their
+    """Bound of one scene-kernel launch on a plan.  Bytes: the run table,
+    the live items' parameters, carries and live inline edges, the stop tables of their
     gradient items, each prepass / clip / field / pool row some live item
     names, at most one atlas texel per pattern-item pixel (never more than
     the atlas), read once; the tiles written once.  Operations: the inline
@@ -631,8 +635,9 @@ def _scene_bound(plan, big, pool=None) -> dict:
     n_live = int(live.sum())
     ip = plan.iparams[live]
     kind = ip[:, be.I_KIND]
-    per_item = (plan.carry, plan.tile_id, plan.iparams, plan.fparams)
+    per_item = (plan.carry, plan.iparams, plan.fparams)
     nbytes = n_live * sum(x[0].numel() * x.element_size() for x in per_item)
+    nbytes += (plan.num_tiles + 1) * 4  # the run table
     nbytes += _live_edges(plan.lines[live]) * 16
     n_grad = int(((kind == be.PAINT_LINEAR) | (kind == be.PAINT_RADIAL)).sum())
     nbytes += n_grad * (plan.stop_offsets[0].numel() + plan.stop_colors[0].numel()) * 4
@@ -682,6 +687,29 @@ def _winding_bound(calls) -> dict:
     return _bound(nbytes, ops)
 
 
+def _ptxas_report(log: str) -> list:
+    """(kernel<T>, registers, spill bytes, static shared bytes) of each
+    entry that nvcc -Xptxas -v compiled, from its log."""
+    import re
+
+    report, name, spilled = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)ILi(\d+)E", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            spilled = 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spilled = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            report.append((name, int(m.group(1)), spilled, int(smem.group(1)) if smem else 0))
+            name = None
+    return report
+
+
 class _Recorder:
     """Wraps a module function for the span of a with-block: records each
     call's arguments (record=True) and/or its synchronised wall time (outer
@@ -723,39 +751,184 @@ class _Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def _random_chunk(torch, rng, t: int, dev):
-    """A random blur chunk on the card: B parts over random spans, LUTs
-    with empty (-1) tiles, gaussian band operators with crop and
-    placement offsets, SourceAlpha members; plus the canvas rows it reads."""
+def _random_canvas(torch, rng, t: int, rows: int, dev):
+    """rows random premultiplied pass rows (rows, t, t, 4) on the card, a
+    fifth of the pixels fully transparent."""
+    alpha = rng.uniform(0, 1, (rows, t, t, 1))
+    alpha[rng.random(alpha.shape) < 0.2] = 0.0
+    canvas = np.concatenate([rng.uniform(0, 1, (rows, t, t, 3)) * alpha, alpha], -1)
+    return torch.from_numpy(canvas.astype(np.float32)).to(dev)
+
+
+def _random_chunk(rng, t: int, rows: int) -> dict:
+    """A random blur chunk (build_chunks' numpy form) over canvas rows
+    [0, rows): B parts over random spans, LUTs with empty (-1) tiles,
+    gaussian band operators with per-part crops and placements (a part
+    whose crop is small leaves out tiles with empty bands, as a chunk's
+    smaller parts do), SourceAlpha members, a random colorspace."""
     from svgrasterize_tpu_torch.ops import filter_batch
 
     B = int(rng.integers(2, 6))
     nsi, nsj = (int(v) for v in rng.integers(1, 4, 2))
     noi, noj = nsi + int(rng.integers(0, 2)), nsj + int(rng.integers(0, 2))
-    rows = 24
-    alpha = rng.uniform(0, 1, (rows, t, t, 1))
-    alpha[rng.random(alpha.shape) < 0.2] = 0.0
-    canvas = np.concatenate([rng.uniform(0, 1, (rows, t, t, 3)) * alpha, alpha], -1)
 
     def taps(k):
         u = np.exp(-np.square(np.arange(k) - k // 2) / (2 * (k / 5) ** 2))
         return u / u.sum()
 
+    def band(u, n_in, n_out):
+        crop = int(rng.integers(1, n_in + 1))
+        return filter_batch._band(u, crop, int(rng.integers(0, n_in - crop + 1)),
+                                  int(rng.integers(-len(u), t)), n_out, n_in)
+
     u, v = taps(int(rng.integers(3, 20)) | 1), taps(int(rng.integers(3, 20)) | 1)
-    ck = {
+    return {
         "B": B, "NSi": nsi, "NSj": nsj, "NOi": noi, "NOj": noj,
         "chain_linear": bool(rng.integers(0, 2)),
         "lut": rng.integers(-1, rows, (B, nsi * nsj)).astype(np.int32),
-        "bh": np.stack([filter_batch._band(u, nsi * t - 3, 2, -(len(u) // 2), noi * t, nsi * t)
-                        for _ in range(B)]),
-        "bw": np.stack([filter_batch._band(v, nsj * t - 5, 1, -(len(v) // 2), noj * t, nsj * t)
-                        for _ in range(B)]),
+        "bh": np.stack([band(u, nsi * t, noi * t) for _ in range(B)]),
+        "bw": np.stack([band(v, nsj * t, noj * t) for _ in range(B)]),
         "src_alpha": rng.random(B) < 0.4,
         "out_idx": np.arange(B * noi * noj, dtype=np.int32),
         "pool_idx": list(range(B * noi * noj)),
     }
-    return (torch.from_numpy(canvas.astype(np.float32)).to(dev),
-            filter_batch.upload_chunk(ck, dev))
+
+
+def _random_plan(torch, rng, t: int, dev):
+    """A random scene plan on the card that reaches every item kind of the
+    scene kernel: solid, linear and radial gradients (every spread, stops
+    with a duplicate offset), patterns from an atlas, collapsed-run fields,
+    pool textures and masks, clip fields and big-class prepass rows, under
+    both fill rules, with 0-64 inline edges an item (horizontal edges and
+    zero padding among them) and carries; 2 of its 12 tiles are empty and
+    16 padding items trail.  Returns (plan, big_wind, pool)."""
+    from svgrasterize_tpu_torch.ops import batch_exec as be
+
+    grid, segs, k, n = (3, 4), be.SMALL_SEGS, 5, 240
+    num_tiles = grid[0] * grid[1]
+    live_tiles = rng.permutation(num_tiles)[:num_tiles - 2]
+    tile_id = np.concatenate([np.sort(rng.choice(live_tiles, n)),
+                              np.full(16, num_tiles)]).astype(np.int32)
+    n += 16
+    lines = np.zeros((n, segs, 4), np.float32)
+    for i in range(n):
+        live = int(rng.integers(0, segs + 1))
+        e = rng.uniform(-3, t + 3, (live, 4)).astype(np.float32)
+        e[:, 0] = np.clip(e[:, 0], 0, t)
+        e[:, 2] = np.clip(e[:, 2], 0, t)
+        e[::7, 2] = e[::7, 0]  # horizontal
+        lines[i, :live] = e
+    n_big, n_clip, n_field, n_pool, n_pat, th = 6, 5, 4, 6, 3, 24
+    kind = rng.integers(0, 4, n)
+    ip = np.zeros((n, be.N_IPARAMS), np.int32)
+    ip[:, be.I_KIND] = kind
+    ip[:, be.I_RULE] = rng.integers(0, 2, n)
+    ip[:, be.I_SPREAD] = rng.integers(0, 3, n)
+
+    def some(p, count):
+        return np.where(rng.random(n) < p, rng.integers(0, count, n), -1)
+
+    ip[:, be.I_BIG] = some(0.15, n_big)
+    ip[:, be.I_CLIP] = some(0.3, n_clip)
+    ip[:, be.I_FIELD] = some(0.1, n_field)
+    ip[:, be.I_TEX] = some(0.1, n_pool)
+    ip[:, be.I_MASK] = some(0.15, n_pool)
+    pat = kind == be.PAINT_PATTERN
+    ip[:, be.I_PAT] = np.where(pat, rng.integers(0, n_pat, n), -1)
+    ip[:, be.I_PAT_LO:be.I_PAT_LO + 2] = np.where(pat[:, None], rng.integers(-2, 3, (n, 2)), 0)
+    ip[:, be.I_PAT_MAX:be.I_PAT_MAX + 2] = np.where(pat[:, None],
+                                                     rng.integers(4, th, (n, 2)), 0)
+    fp = np.zeros((n, be.N_FPARAMS), np.float32)
+    fp[:, be.F_OPACITY] = rng.uniform(0.3, 1.0, n)
+    fp[:, be.F_TILE_R] = tile_id % num_tiles // grid[1] * t
+    fp[:, be.F_TILE_C] = tile_id % num_tiles % grid[1] * t
+    alpha = rng.uniform(0.2, 1.0, n)
+    fp[:, be.F_COLOR:be.F_COLOR + 3] = rng.uniform(0, 1, (n, 3)) * alpha[:, None]
+    fp[:, be.F_COLOR + 3] = alpha
+    ang = rng.uniform(-0.5, 0.5, n)
+    scale = rng.uniform(0.5, 2.0, n)
+    fp[:, be.F_AFFINE:be.F_AFFINE + 6] = np.stack([
+        np.sin(ang) * scale, np.cos(ang) * scale, rng.uniform(-20, 20, n),
+        np.cos(ang) * scale, -np.sin(ang) * scale, rng.uniform(-20, 20, n)], 1)
+    extent = 4.0 * t
+    fp[:, be.F_P0:be.F_P0 + 2] = rng.uniform(0, extent, (n, 2))
+    fp[:, be.F_P1:be.F_P1 + 2] = rng.uniform(0, extent, (n, 2))
+    fp[:, be.F_CENTER:be.F_CENTER + 2] = rng.uniform(0, extent, (n, 2))
+    fp[:, be.F_FCENTER:be.F_FCENTER + 2] = (fp[:, be.F_CENTER:be.F_CENTER + 2]
+                                            + rng.uniform(-4, 4, (n, 2)))
+    fp[:, be.F_RADIUS] = rng.uniform(8, 3 * t, n)
+    fp[:, be.F_FRADIUS] = np.where(rng.random(n) < 0.5, 0.0, rng.uniform(0, 4, n))
+    wh = rng.uniform(5, 30, (n, 2))
+    fp[:, be.F_PAT_FWD:be.F_PAT_FWD + 6] = np.stack([
+        th / wh[:, 0] * 0.9, rng.uniform(-0.3, 0.3, n), rng.uniform(-1, 1, n),
+        rng.uniform(-0.3, 0.3, n), th / wh[:, 1] * 0.9, rng.uniform(-1, 1, n)], 1)
+    fp[:, be.F_PAT_XY:be.F_PAT_XY + 2] = rng.uniform(-10, 10, (n, 2))
+    fp[:, be.F_PAT_WH:be.F_PAT_WH + 2] = np.where(pat[:, None], wh, 1.0)
+    offs = np.sort(rng.uniform(0, 1, (n, k)), axis=1)
+    offs[:, 0] = 0.0
+    offs[::3, 2] = offs[::3, 1]  # a duplicate offset: a step
+    s_alpha = rng.uniform(0.3, 1.0, (n, k, 1))
+    stop_cols = np.concatenate([rng.uniform(0, 1, (n, k, 3)) * s_alpha, s_alpha], -1)
+
+    def premultiplied(shape):
+        a = rng.uniform(0, 1, shape + (1,))
+        return np.concatenate([rng.uniform(0, 1, shape + (3,)) * a, a], -1)
+
+    clips = rng.uniform(0, 1, (n_clip, t, t))
+    clips[rng.random(clips.shape) < 0.2] = 0.0
+    clips[rng.random(clips.shape) < 0.2] = 1.0
+    big_edges = np.zeros((n_big, 128, 4), np.float32)
+    for r in range(n_big):
+        live = int(rng.integers(1, 129))
+        big_edges[r, :live] = rng.uniform(-4, t + 4, (live, 4))
+
+    def up(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    plan = be.DevicePlan(
+        tile=t, grid=grid, lines=up(lines),
+        carry=up(np.round(rng.uniform(-2, 2, (n, t)) * 2) / 2),
+        tile_id=up(tile_id, np.int32), iparams=up(ip, np.int32), fparams=up(fp),
+        stop_offsets=up(offs), stop_colors=up(stop_cols), bigs=(up(big_edges),),
+        clips=up(clips), field=up(premultiplied((n_field, t, t))), reads_pool=True,
+        patterns=up(premultiplied((n_pat, th, th))),
+        runs=up(be.tile_runs(tile_id, num_tiles), np.int32),
+    )
+    return plan, be._prepass_winding(plan.bigs, t), up(premultiplied((n_pool, t, t)))
+
+
+def _item_kinds(plan) -> set:
+    """The item kinds a plan's live items reach in the scene kernel."""
+    from svgrasterize_tpu_torch.ops import batch_exec as be
+
+    ip = plan.iparams[plan.tile_id < plan.num_tiles].cpu()
+    names = {be.PAINT_SOLID: "solid", be.PAINT_LINEAR: "linear",
+             be.PAINT_RADIAL: "radial", be.PAINT_PATTERN: "pattern"}
+    kinds = {names[int(v)] for v in ip[:, be.I_KIND].unique()}
+    for col, name in ((be.I_FIELD, "field"), (be.I_TEX, "tex"), (be.I_MASK, "mask"),
+                      (be.I_CLIP, "clip"), (be.I_BIG, "big")):
+        if bool((ip[:, col] >= 0).any()):
+            kinds.add(name)
+    return kinds
+
+
+def _culled_edges(plan) -> tuple:
+    """(evaluated, walked): (edge, pixel-row) pairs of the plan's live
+    inline items that the scene kernel evaluates (each warp's kept edges,
+    sign != 0 and meeting its rows, rounded up to its group of 8, at each
+    of its rows) against segs x rows per item, every padded edge at every
+    row, as the first design walked them."""
+    t = plan.tile
+    rows_per_warp = 64 // t  # csrc/scene.cu Layout: 32 lanes over T / 2 columns
+    live = (plan.tile_id < plan.num_tiles) & (plan.iparams[:, 3] < 0)  # I_BIG
+    lines = plan.lines[live]
+    a0, b0 = lines[..., 0], lines[..., 2]
+    y_lo, y_hi, sign = a0.minimum(b0), a0.maximum(b0), a0 != b0
+    evaluated = 0
+    for r0 in range(0, t, rows_per_warp):
+        kept = (sign & (y_hi > r0) & (y_lo < r0 + rows_per_warp)).sum(1)
+        evaluated += int(((kept + 7) // 8 * 8).sum()) * rows_per_warp
+    return evaluated, lines.shape[0] * lines.shape[1] * t
 
 
 def _png_pixels(tiles, lowered, viewport) -> np.ndarray:
@@ -801,8 +974,8 @@ def _layer_breakdown(torch, doc: str, dev) -> str:
 def _pass_breakdown(torch, prog, pool, viewport) -> str:
     """ms per frame of an uploaded pass program through the kernels, and of
     its stages by kind: the levels' scene programs, the per-part filter
-    chains (PyTorch ops), the blur chunks, the level pool writes and the
-    main stream.  CUDA events around the calls, so a stage whose host
+    chains (PyTorch ops), the blur levels (one launch each), the level pool
+    writes and the main stream.  CUDA events around the calls, so a stage whose host
     dispatch is slower than the card is timed by its dispatch.  pool holds
     every level's rows (a run_program with it came first)."""
     from svgrasterize_tpu_torch.ops import fused_exec
@@ -822,10 +995,10 @@ def _pass_breakdown(torch, prog, pool, viewport) -> str:
             for part, _src, _dst in lv.filters:
                 _apply_part_filter(canvas, part, grid_w, origin, False, t)
 
-    def chunks():
+    def blurs():
         for lv, canvas in zip(levels, canvases):
-            for ck in lv.chunks:
-                fused_exec.blur_chunk(canvas, ck, t, False)
+            if lv.blur is not None:
+                fused_exec.blur_chunk(canvas, lv.blur, t, False)
 
     def writes():
         for lv, canvas in zip(levels, canvases):
@@ -836,7 +1009,7 @@ def _pass_breakdown(torch, prog, pool, viewport) -> str:
         "program": lambda: run_program(prog, origin, False, pool=pool),
         "level scenes": scenes,
         "filter chains": filters,
-        "blur chunks": chunks,
+        "blur levels": blurs,
         "plain-pass pool writes": writes,
         "main stream": lambda: fused_exec.execute_items_fused(prog.main, pool),
     }
@@ -882,13 +1055,10 @@ def main() -> int:
     # 2. build
     so, build_s = cuda_lib.build()
     cuda_lib.load()
-    ptxas = [
-        ln.strip() for ln in (so.parent / "nvcc.log").read_text().splitlines()
-        if "registers" in ln or "Compiling entry" in ln
-    ]
     _say("build", f"{so.name} in {build_s:.2f}s (0 = cached)")
-    for ln in ptxas:
-        _say("build", ln)
+    for name, regs, spilled, smem in _ptxas_report((so.parent / "nvcc.log").read_text()):
+        _say("build", f"{name}: {regs} registers, {spilled} bytes spilled, {smem} bytes"
+                      " static shared memory")
 
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -966,10 +1136,37 @@ def main() -> int:
         if not bool(torch.isfinite(got).all()) or not err <= SCENE_TOL:
             raise RuntimeError(f"scene kernel disagrees: {err} > {SCENE_TOL}")
         ms = _time_ms(torch, lambda: fused_exec.scene_tiles(plan, big), 20)
+        dev_ms = _device_ms(torch, lambda: fused_exec.scene_tiles(plan, big), 20)
         plain_ms = _time_ms(torch, lambda: batch_exec._scene_tiles(plan, big), 3)
         results["scene_tiles"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       **_scene_bound(plan, big), library_ms=None)
-        _say("scene", f"max abs diff {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        evaluated, walked = _culled_edges(plan)
+        _say("scene", (
+            f"flat plan T=32: max abs diff {err:.3g}; kernel {ms:.4f} ms per call"
+            f" ({dev_ms:.4f} ms with the host ahead), plain {plain_ms:.4f} ms, bound"
+            f" {results['scene_tiles']['bound_ms']:.6f} ms"
+            f" ({results['scene_tiles']['bound_by']}); edges evaluated {evaluated} of"
+            f" {walked} (segs x rows), {evaluated / max(walked, 1) * 100:.2f}%"
+        ))
+        # random plans reaching every item kind, at every tile size
+        rng = np.random.default_rng(5)
+        for t in (16, 32, 64):
+            rplan, rbig, rpool = _random_plan(torch, rng, t, dev)
+            kinds = _item_kinds(rplan)
+            if len(kinds) < 9:
+                raise RuntimeError(f"the random plan misses item kinds: {sorted(kinds)}")
+            got = fused_exec.scene_tiles(rplan, rbig, rpool)
+            ref = batch_exec._scene_tiles(rplan, rbig, rpool)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not bool(torch.isfinite(got).all()) or not err <= SCENE_TOL:
+                raise RuntimeError(f"scene kernel disagrees on the random plan at T={t}: {err}")
+            results["scene_tiles"]["max_abs_err"] = max(results["scene_tiles"]["max_abs_err"], err)
+            _say("scene", (
+                f"random plan T={t} ({rplan.tile_id.shape[0]} items over"
+                f" {rplan.num_tiles} tiles, 2 empty; {', '.join(sorted(kinds))}):"
+                f" max abs diff {err:.3g}"
+            ))
         plain_png = _png_pixels(batch_exec.execute_items(plan), low_cli, vp_cli)
         _say("layers", _layer_breakdown(torch, doc, dev))
 
@@ -1043,6 +1240,23 @@ def main() -> int:
         spre_ms = _time_ms(torch, lambda: fused_exec.prepass_winding(splan.bigs, 64), 20)
         spre_dev_ms = _device_ms(torch, lambda: fused_exec.prepass_winding(splan.bigs, 64), 20)
         sscene_ms = _time_ms(torch, lambda: fused_exec.scene_tiles(splan, sbig), 20)
+        sscene_dev_ms = _device_ms(torch, lambda: fused_exec.scene_tiles(splan, sbig), 20)
+        sgot = fused_exec.scene_tiles(splan, sbig)
+        sref = batch_exec._scene_tiles(splan, sbig)
+        torch.cuda.synchronize()
+        sscene_err = float((sgot - sref).abs().max())
+        del sgot, sref
+        if not sscene_err <= SCENE_TOL:
+            raise RuntimeError(f"scene kernel disagrees on the serving plan: {sscene_err}")
+        ssb = _scene_bound(splan, sbig)
+        evaluated, walked = _culled_edges(splan)
+        _say("scene", (
+            f"serving plan {int(w)}^2 T=64: max abs diff {sscene_err:.3g}; kernel"
+            f" {sscene_ms:.4f} ms per call ({sscene_dev_ms:.4f} ms with the host ahead),"
+            f" bound {ssb['bound_ms']:.6f} ms ({ssb['bound_by']}); edges evaluated"
+            f" {evaluated} of {walked} (segs x rows),"
+            f" {evaluated / max(walked, 1) * 100:.2f}%"
+        ))
         sb = _prepass_bound(splan.bigs, 64)
         _say("prepass", (
             f"serving plan {int(w)}^2 T=64 (classes (rows, width)"
@@ -1067,7 +1281,7 @@ def main() -> int:
             f.write(pass_doc(PASS_DRAWS, CLI_SIZE, seed=0))
         vp_p, low_p, seconds_p = _lower(pdoc, None, 32, passes=True)
         prog = upload_program(low_p, dev)
-        chunks = [ck for level in prog.levels for ck in level.chunks]
+        chunks = [ck for level in prog.levels if level.blur for ck in level.blur.chunks]
         n_filters = sum(len(level.filters) for level in prog.levels)
         _say("plan", (
             f"passes {CLI_SIZE}^2 T=32: {len(prog.levels)} levels, rows"
@@ -1098,6 +1312,7 @@ def main() -> int:
         if not err <= SCENE_TOL:
             raise RuntimeError(f"scene kernel disagrees on pass items: {err}")
         ms = _time_ms(torch, lambda: fused_exec.scene_tiles(mplan, big, pool), 20)
+        dev_ms = _device_ms(torch, lambda: fused_exec.scene_tiles(mplan, big, pool), 20)
         plain_ms = _time_ms(torch, lambda: batch_exec._scene_tiles(mplan, big, pool), 3)
         results["scene_tiles"]["max_abs_err"] = max(results["scene_tiles"]["max_abs_err"], err)
         n_pass_items = int(((mplan.iparams[:, batch_exec.I_TEX] >= 0)
@@ -1105,48 +1320,64 @@ def main() -> int:
         b = _scene_bound(mplan, big, pool)
         _say("scene", (
             f"passes main stream ({n_pass_items} tex/mask items): max abs diff {err:.3g};"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
-            f" ({b['bound_by']})"
+            f" kernel {ms:.4f} ms per call ({dev_ms:.4f} ms with the host ahead), plain"
+            f" {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
         ))
         _say("pass_layers", _pass_breakdown(torch, prog, pool, vp_p))
 
-        # 8. blur chunk kernel against plain: the document's chunks, then
-        # random chunks at T=32 and 64
+        # 8. blur chunk kernel against plain: the document's level 0 (its
+        # chunks in one launch), then random chunks at T=16, 32 and 64, each
+        # alone and packed into one level
         level0 = prog.levels[0]
         canvas0 = fused_exec.execute_items_fused(level0.plan, None)
-        worst = 0.0
-        for ck in level0.chunks:
-            got = fused_exec.blur_chunk(canvas0, ck, 32, False)
-            ref = filter_batch.apply_chunk(canvas0, ck, 32, False)
-            torch.cuda.synchronize()
-            worst = max(worst, float((got - ref).abs().max()))
-        doc_err = worst
+        blur0 = level0.blur
+        before = fused_exec.blur_chunk.launches
+        got = fused_exec.blur_chunk(canvas0, blur0, 32, False)
+        if fused_exec.blur_chunk.launches != before + 1:
+            raise RuntimeError("blur_chunk made more than one launch for a level")
+        ref = filter_batch.apply_level(canvas0, blur0, 32, False)
+        torch.cuda.synchronize()
+        doc_err = worst = float((got - ref).abs().max())
         rng = np.random.default_rng(2)
-        for t in (32, 64):
-            for _ in range(4):
-                rows_t, ck = _random_chunk(torch, rng, t, dev)
+        shapes = {}
+        for t in (16, 32, 64):
+            rows_t = _random_canvas(torch, rng, t, 24, dev)
+            cks = [_random_chunk(rng, t, 24) for _ in range(4)]
+            shapes[t] = [(ck["B"], ck["NSi"], ck["NSj"], ck["NOi"], ck["NOj"]) for ck in cks]
+            levels = [filter_batch.pack_level([ck], t, dev) for ck in cks]
+            levels.append(filter_batch.pack_level(cks, t, dev))
+            for lv in levels:
                 for lin in (False, True):
-                    got = fused_exec.blur_chunk(rows_t, ck, t, lin)
-                    ref = filter_batch.apply_chunk(rows_t, ck, t, lin)
+                    before = fused_exec.blur_chunk.launches
+                    got = fused_exec.blur_chunk(rows_t, lv, t, lin)
+                    if fused_exec.blur_chunk.launches != before + 1:
+                        raise RuntimeError("blur_chunk made more than one launch for a level")
+                    # per chunk, as the plain path runs it
+                    ref = torch.cat([filter_batch.apply_chunk(rows_t, ck, t, lin)
+                                     for ck in lv.chunks])
                     torch.cuda.synchronize()
                     worst = max(worst, float((got - ref).abs().max()))
         if not worst <= BLUR_TOL:
             raise RuntimeError(f"blur chunk kernel disagrees: {worst} > {BLUR_TOL}")
-        lvl_chunks = level0.chunks
-
-        def all_chunks(fn):
-            for ck in lvl_chunks:
-                fn(canvas0, ck, 32, False)
-
-        ms = _time_ms(torch, lambda: all_chunks(fused_exec.blur_chunk), 20)
-        plain_ms = _time_ms(torch, lambda: all_chunks(filter_batch.apply_chunk), 5)
+        ms = _time_ms(torch, lambda: fused_exec.blur_chunk(canvas0, blur0, 32, False), 20)
+        dev_ms = _device_ms(torch, lambda: fused_exec.blur_chunk(canvas0, blur0, 32, False), 20)
+        plain_ms = _time_ms(torch, lambda: filter_batch.apply_level(canvas0, blur0, 32, False), 5)
         results["blur_chunk"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                                     **_chunk_bound(lvl_chunks, 32), library_ms=None)
+                                     **_chunk_bound(blur0.chunks, 32), library_ms=None)
+        # each chunk of level 0 as a level of its own: what paces the launch
+        alone = []
+        for i in blur0.order:
+            one = filter_batch.pack_level([low_p.groups[0]["_blur_batch"][0][i]], 32, dev)
+            one_ms = _device_ms(torch, lambda: fused_exec.blur_chunk(canvas0, one, 32, False), 20)
+            alone.append(f"{one.tiles} tiles {one_ms:.4f}")
         _say("blur_chunk", (
-            f"document chunks: max abs diff {doc_err:.3g}; random chunks T=32,64:"
-            f" worst {worst:.3g}; level 0's {len(lvl_chunks)} chunks"
-            f" ({sum(ck['B'] for ck in lvl_chunks)} parts): kernel {ms:.4f} ms,"
-            f" plain {plain_ms:.4f} ms"
+            f"level 0's {len(blur0.chunks)} chunks ({sum(ck['B'] for ck in blur0.chunks)}"
+            f" parts, {blur0.tiles} out tiles) in one launch: max abs diff {doc_err:.3g};"
+            f" random chunks (B, NSi, NSj, NOi, NOj) {shapes}, each alone and the four"
+            f" packed, one launch each: worst {worst:.3g}; level 0: kernel {ms:.4f} ms per"
+            f" call ({dev_ms:.4f} ms with the host ahead), plain {plain_ms:.4f} ms, bound"
+            f" {results['blur_chunk']['bound_ms']:.6f} ms ({results['blur_chunk']['bound_by']});"
+            f" each chunk alone, in packed order, ms with the host ahead: {'; '.join(alone)}"
         ))
 
         # 9. pool row writer against plain: exact
@@ -1201,11 +1432,16 @@ def main() -> int:
                   if path_launches["passes"][k] == 0]
         if missed:
             raise RuntimeError(f"pass CLI did not launch {missed}: {path_launches['passes']}")
+        blur_levels = sum(lv.blur is not None for lv in prog.levels)
+        if path_launches["passes"]["blur_chunk"] != blur_levels:
+            raise RuntimeError(f"pass CLI made {path_launches['passes']['blur_chunk']} blur"
+                               f" launches for {blur_levels} levels with chunks")
         _say("passes", (
             f"{CLI_SIZE}x{CLI_SIZE} PNG in {pcli_s:.3f}s; max diff vs plain"
             f" {int(diff.max())}/255, {float((diff == 0).mean()) * 100:.4f}% bytes equal;"
             f" pass program vs plain max abs diff {pass_err:.3g}; launches"
-            f" {path_launches['passes']}"
+            f" {path_launches['passes']} ({len(chunks)} blur chunks in"
+            f" {blur_levels} level launch(es))"
         ))
 
         # 11. serving the stress document (a main path)
@@ -1364,13 +1600,14 @@ def main() -> int:
             raise RuntimeError(f"scene kernel disagrees on pattern items: {err}")
         results["scene_tiles"]["max_abs_err"] = max(results["scene_tiles"]["max_abs_err"], err)
         ms = _time_ms(torch, lambda: fused_exec.scene_tiles(tplan, big), 20)
+        dev_ms = _device_ms(torch, lambda: fused_exec.scene_tiles(tplan, big), 20)
         plain_ms = _time_ms(torch, lambda: batch_exec._scene_tiles(tplan, big), 3)
         b = _scene_bound(tplan, big)
         _say("scene", (
             f"patterns {CLI_SIZE}^2 ({n_pat} pattern items, atlas"
             f" {tuple(tplan.patterns.shape)}, lowered in {seconds_t['lower']:.2f}s): max abs"
-            f" diff {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound"
-            f" {b['bound_ms']:.4f} ms ({b['bound_by']})"
+            f" diff {err:.3g}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms with the host"
+            f" ahead), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
         ))
         pat_plain_png = _png_pixels(batch_exec.execute_items(tplan), low_t, vp_t)
         fused_exec.reset_launch_counts()

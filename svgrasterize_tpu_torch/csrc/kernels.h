@@ -67,9 +67,10 @@ int svgr_prepass_winding(const float* const* edges, const int* rows,
                          int tile, cudaStream_t stream);
 
 // Premultiplied canvas tiles of a (tile_id, z)-sorted work-item stream.
-//   lines (n, segs, 4), carry (n, tile), tile_id (n,) sorted with padding
-//   items at num_tiles, iparams (n, SVGR_N_IPARAMS), fparams
-//   (n, SVGR_N_FPARAMS), stop_off (n, k_stops), stop_col (n, k_stops, 4);
+//   lines (n, segs, 4), carry (n, tile), runs (num_tiles + 1,) int32 with
+//   tile t's items at [runs[t], runs[t + 1]), iparams (n, SVGR_N_IPARAMS),
+//   fparams (n, SVGR_N_FPARAMS), stop_off (n, k_stops), stop_col
+//   (n, k_stops, 4); lines and stop_col 16-byte aligned;
 //   big_wind (B, tile, tile), clips (U, tile, tile), field
 //   (F, tile, tile, 4), pool (P, tile, tile, 4) and the pattern-tile atlas
 //   patterns (Q, pat_h, pat_w, 4) may be null when no item references them
@@ -78,7 +79,7 @@ int svgr_prepass_winding(const float* const* edges, const int* rows,
 //   out: (num_tiles, tile, tile, 4) f32; tiles without items are zero.
 // tile is 16, 32 or 64; segs <= SVGR_MAX_SEGS; k_stops <= SVGR_MAX_STOPS.
 int svgr_scene_tiles(const float* lines, int segs, const float* carry,
-                     const int* tile_id, int n_items, const int* iparams,
+                     const int* runs, const int* iparams,
                      const float* fparams, const float* stop_off,
                      const float* stop_col, int k_stops,
                      const float* big_wind, const float* clips,
@@ -106,19 +107,44 @@ int svgr_winding(const float* edges, int segs, float* out, int height,
 int svgr_winding_batch(const float* edges, const int* table, int n_masks,
                        int blocks, float* out, cudaStream_t stream);
 
-// Every out-span tile of a chunk of lone separable-blur filter parts.
-//   canvas (rows, tile, tile, 4) f32 premultiplied pass rows;
-//   lut (B, nsi * nsj) int32 canvas row of each span tile, -1 = zeros;
-//   bh (B, noi * tile, nsi * tile), bw (B, noj * tile, nsj * tile) f32
-//   band operators; src_alpha (B,) int32, 1 = the part blurs SourceAlpha;
-//   gamma_in / gamma_out: 0 none, 1 sRGB -> linear, 2 linear -> sRGB.
-//   out: (B * noi * noj, tile, tile, 4) f32 premultiplied.
+// columns of svgr_blur_level's per-chunk table (ops/filter_batch.py
+// pack_level): the chunk's first out tile (ascending), its sizes and
+// colorspace, and its offsets into the level's concatenated arrays
+#define SVGR_BLUR_TABLE_COLS 13
+#define SVGR_BT_OUT 0     // first out tile of the level's output
+#define SVGR_BT_B 1       // parts
+#define SVGR_BT_NSI 2     // span tiles down / across
+#define SVGR_BT_NSJ 3
+#define SVGR_BT_NOI 4     // out-span tiles down / across
+#define SVGR_BT_NOJ 5
+#define SVGR_BT_LINEAR 6  // 1: the chain blurs in linearRGB
+#define SVGR_BT_LUT 7     // offset into lut (ints)
+#define SVGR_BT_BH 8      // offset into bh (floats)
+#define SVGR_BT_BW 9      // offset into bw (floats)
+#define SVGR_BT_PART 10   // first part (src_alpha)
+#define SVGR_BT_HB 11     // first (part, 16-row block) of hband
+#define SVGR_BT_WB 12     // first (part, out-tile column) of wband
+
+// Every out-span tile of every chunk of lone separable-blur filter parts
+// of one level, in one launch.  Per chunk (table row c, B parts):
+//   lut + LUT: (B, nsi * nsj) int32 canvas row of each span tile, -1 = zeros;
+//   bh + BH: (B, noi * tile, nsi * tile), bw + BW: (B, noj * tile,
+//   nsj * tile) f32 band operators; src_alpha + PART: (B,) int32, 1 = the
+//   part blurs SourceAlpha; hband + HB: (B * noi * tile / 16, 2) int32
+//   [lo, hi) of the nonzero columns of each 16-row block of BH, wband + WB:
+//   (B * noj, 2) the same of each out-tile column's BW rows (lo >= hi:
+//   none);
+//   out + OUT tiles: (B * noi * noj, tile, tile, 4) f32 premultiplied.
+//   canvas (rows, tile, tile, 4) f32 premultiplied pass rows; linear_rgb:
+//   the canvas's colorspace (a chunk whose chain differs converts around
+//   its blur); tiles: the level's out tiles (the last row's OUT + its
+//   B * noi * noj).
 // tile is 16, 32 or 64.
-int svgr_blur_chunk(const float* canvas, int rows, const int* lut,
+int svgr_blur_level(const float* canvas, int rows, const int* lut,
                     const float* bh, const float* bw, const int* src_alpha,
-                    int parts, int nsi, int nsj, int noi, int noj,
-                    int gamma_in, int gamma_out, float* out, int tile,
-                    cudaStream_t stream);
+                    const int* hband, const int* wband, const int* table,
+                    int n_chunks, int tiles, int linear_rgb, float* out,
+                    int tile, cudaStream_t stream);
 
 // pool[dst_idx[i]] = src[src_idx[i]] for i < n, rows of tile * tile * 4 f32,
 // in place; indices outside [0, pool_rows) / [0, src_rows) are skipped.

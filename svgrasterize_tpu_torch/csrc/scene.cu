@@ -23,43 +23,115 @@
 // pattern item's gather index is computed at each pixel from its
 // parameters, in the operation order of batch_exec._paint_item.
 //
-// What bounds it on the H100: arithmetic in the inline winding (up to 64
-// edges x T^2 pixels per item, ~25 FP32 operations per pair) and in the
-// gradient paints; per item it reads under 2 KB of parameters and at most
-// one T x T field per stack (two pool rows for a masked texture item), and
-// writes each tile once.
+// What bounds it on the H100: the tiles it writes (T*T*16 bytes each, 236
+// MB for a 3840^2 frame) and the fields it reads, and, on dense tiles,
+// the arithmetic of the inline winding (up to 64 edges per item, ~30 FP32
+// operations per live (edge, pixel) pair) and the gradient paints.  Per
+// item it reads under 2.5 KB of parameters.
 //
-// Design: one block per canvas tile, so tile runs are independent and no
-// block synchronises with another.  Thread 0 and 1 find the tile's item run
-// by binary search in the sorted tile_id (padding items sit at num_tiles,
-// past every block).  Each of the 256 threads keeps the RGBA accumulator
-// of its T*T/256 pixels in registers for the whole run; per item the
-// block stages the item's edge parameters, stops and scalars in shared
-// memory and every thread evaluates its pixels.  Each tile is written once,
-// as float4 (T, T, 4) rows; tiles with no items are written as zeros.
+// The first design ran one block of 256 threads per tile, each thread
+// holding T*T/256 RGBA accumulators (195 registers at T = 64, so one block
+// of 8 warps per SM and little to hide the latency of the stores), two
+// __syncthreads per item, and every pixel walked all of the item's padded
+// edges, though lowering has cut every edge at the 8-row band boundaries
+// (render_plan._band_split_batch), so most of them miss a pixel's row.
+//
+// Design: the work is units of (tile, band of rows): 4 rows at T = 64,
+// 8 at T = 32, the whole tile at T = 16, each independent (the carry is
+// per row and coverage per pixel), so each output pixel is written once
+// and a tile with no items is written as zeros.  Each warp owns 1-4 whole
+// rows, lanes over columns, 2 pixels of one row per thread, under a
+// register cap that keeps at least 24 warps (20 at T < 64) on an SM.  The
+// launch holds as many blocks as the card runs at once, and block b
+// renders units b, b + gridDim.x, ...: on the documents served, a tile
+// holds one item (collapsed runs), so a unit's own chain (its run, its
+// parameters, its fields, its store) would be all latency.  A unit's run
+// comes from the plan's run table (batch_exec.tile_runs, made at upload),
+// loaded while the unit before it renders; the parameters of a run (raw
+// edges, fparams, iparams, stops) are staged kItems items at a time into a
+// double buffer in dynamic shared memory with cp.async, the next group
+// (this unit's, or the next unit's first) loading while the current one
+// renders, behind one __syncthreads per group.  Per item each warp
+// computes edge_params of the staged edges, keeps with ballots only those
+// with sign != 0 whose [y_lo, y_hi] meets its own rows, compacts them in
+// edge order into its own shared slice, and evaluates them kGroup at a
+// time with edge_contrib_flat (independent chains), adding in edge order.
+// A dropped edge contributes an exact 0.0 to the warp's pixels, so each
+// pixel's winding is the same sum, bit for bit, as a walk over every edge
+// (winding.cuh, built with -fmad=false).
+
+#include <algorithm>
 
 #include "kernels.h"
 #include "winding.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kGroup = 8;  // edges a thread evaluates at once
+constexpr int kItems = 8;  // items staged per group
+// a warp's compacted edges, with room for the reads of a last partial
+// group past the kept ones (their values are discarded)
+constexpr int kKeptSlots = SVGR_MAX_SEGS + kGroup;
+
+// A thread's kPx = 2 pixels are two columns T / 2 apart of one row, so
+// their edge terms share the row's clip of each edge; a warp covers
+// 32 / (T / 2) rows (1 at T = 64, 2 at 32, 4 at 16).  A block is 4 warps,
+// kBand rows of one tile (4 at T = 64, 8 at 32, the tile at 16): small
+// blocks, so an SM's blocks wait on their loads at different times.
+template <int T>
+struct Layout {
+  static constexpr int kPx = 2;
+  static constexpr int kLanesPerRow = T / 2;
+  static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
+  static constexpr int kWarps = 4;
+  static constexpr int kBand = kWarps * kRowsPerWarp;
+  static constexpr int kThreads = 32 * kWarps;
+  // blocks an SM must hold: 6 at T = 64 (at most 80 registers a thread),
+  // 5 below, where a thread's two pixels need more without spilling
+  static constexpr int kMinBlocks = T == 64 ? 6 : 5;
+};
+
+// One staging buffer, offsets in floats: kItems items' raw edges and stop
+// colours (float4, first, so 16-byte aligned), then stop offsets, fparams
+// and iparams; the size is rounded to a float4.
+struct Stage {
+  int lines, col, off, fp, ip, size;
+};
+
+__host__ __device__ inline Stage stage_layout(int segs, int k_stops) {
+  Stage s;
+  s.lines = 0;
+  s.col = s.lines + kItems * segs * 4;
+  s.off = s.col + kItems * k_stops * 4;
+  s.fp = s.off + kItems * k_stops;
+  s.ip = s.fp + kItems * SVGR_N_FPARAMS;
+  s.size = (s.ip + kItems * SVGR_N_IPARAMS + 3) & ~3;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 // Python-style floating remainder (torch.remainder / jnp.remainder).
 __device__ __forceinline__ float py_remainder(float a, float b) {
   float m = fmodf(a, b);
   if (m != 0.f && ((b < 0.f) != (m < 0.f))) m += b;
   return m;
-}
-
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
-                                           int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
 }
 
 // Linear or radial gradient paint at pixel (row, col) of the item's tile;
@@ -151,11 +223,40 @@ __device__ float4 pattern_paint(const float* fp, const int* ip, int row,
   return atlas[((size_t)ip[SVGR_I_PAT] * pat_h + i0) * pat_w + i1];
 }
 
+// Queue the cp.async copies of items [it, it + n) into one staging buffer.
+template <int kThreads>
+__device__ void stage_items(float* buf, const Stage& s, int it, int n,
+                            int segs, int k_stops, int tid,
+                            const float4* __restrict__ lines,
+                            const float* __restrict__ fparams,
+                            const int* __restrict__ iparams,
+                            const float* __restrict__ stop_off,
+                            const float4* __restrict__ stop_col) {
+  float4* s_lines = reinterpret_cast<float4*>(buf + s.lines);
+  float4* s_col = reinterpret_cast<float4*>(buf + s.col);
+  const float4* g_lines = lines + (size_t)it * segs;
+  const float4* g_col = stop_col + (size_t)it * k_stops;
+  const float* g_off = stop_off + (size_t)it * k_stops;
+  const float* g_fp = fparams + (size_t)it * SVGR_N_FPARAMS;
+  const int* g_ip = iparams + (size_t)it * SVGR_N_IPARAMS;
+  for (int e = tid; e < n * segs; e += kThreads) cp_async16(s_lines + e, g_lines + e);
+  for (int e = tid; e < n * k_stops; e += kThreads) {
+    cp_async16(s_col + e, g_col + e);
+    cp_async4(buf + s.off + e, g_off + e);
+  }
+  for (int e = tid; e < n * SVGR_N_FPARAMS; e += kThreads) {
+    cp_async4(buf + s.fp + e, g_fp + e);
+  }
+  for (int e = tid; e < n * SVGR_N_IPARAMS; e += kThreads) {
+    cp_async4(buf + s.ip + e, g_ip + e);
+  }
+}
+
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Layout<T>::kThreads, Layout<T>::kMinBlocks)
 scene_kernel(const float4* __restrict__ lines, int segs,
-             const float* __restrict__ carry, const int* __restrict__ tile_id,
-             int n_items, const int* __restrict__ iparams,
+             const float* __restrict__ carry, const int* __restrict__ runs,
+             const int* __restrict__ iparams,
              const float* __restrict__ fparams,
              const float* __restrict__ stop_off,
              const float4* __restrict__ stop_col, int k_stops,
@@ -164,142 +265,241 @@ scene_kernel(const float4* __restrict__ lines, int segs,
              const float4* __restrict__ field,
              const float4* __restrict__ pool,
              const float4* __restrict__ patterns, int pat_h, int pat_w,
-             float4* __restrict__ out) {
-  constexpr int kPx = T * T / kThreads;
-  __shared__ EdgeParams s_edges[SVGR_MAX_SEGS];
-  __shared__ float s_off[SVGR_MAX_STOPS];
-  __shared__ float4 s_col[SVGR_MAX_STOPS];
-  __shared__ float s_fp[SVGR_N_FPARAMS];
-  __shared__ int s_ip[SVGR_N_IPARAMS];
-  __shared__ int s_run[2];
+             float4* __restrict__ out, int num_tiles) {
+  using L = Layout<T>;
+  constexpr int kBands = T / L::kBand;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int tile = blockIdx.x;
   const int tid = threadIdx.x;
-  if (tid < 2) s_run[tid] = lower_bound(tile_id, n_items, tile + tid);
-  __syncthreads();
-  const int first = s_run[0];
-  const int last = s_run[1];
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // this thread's pixels' columns col0 + j * T / 2 of each unit's rows
+  const int col0 = lane % L::kLanesPerRow;
+  const int units = num_tiles * kBands;
+  const Stage st = stage_layout(segs, k_stops);
+  EdgeParams* s_kept =
+      reinterpret_cast<EdgeParams*>(smem + 2 * st.size) + warp * kKeptSlots;
+  auto stage = [&](int group, int it, int n) {
+    stage_items<L::kThreads>(smem + (group & 1) * st.size, st, it, min(kItems, n),
+                             segs, k_stops, tid, lines, fparams, iparams,
+                             stop_off, stop_col);
+  };
 
-  float4 acc[kPx];
+  // the units (tile, band) this block renders, blockIdx.x + k * gridDim.x;
+  // group gi of the block's sequence of item groups reads buffer gi & 1
+  int unit = blockIdx.x;
+  int first = unit < units ? runs[unit / kBands] : 0;
+  int last = unit < units ? runs[unit / kBands + 1] : 0;
+  if (first < last) stage(0, first, last - first);
+  cp_async_commit();
+  int gi = 0;
+  for (; unit < units; unit += gridDim.x) {
+    // the next unit's run, in flight while this one's first group waits
+    const int next = unit + gridDim.x;
+    const int next_first = next < units ? runs[next / kBands] : 0;
+    const int next_last = next < units ? runs[next / kBands + 1] : 0;
+    const int tile = unit / kBands;
+    const int warp_r0 = (unit % kBands) * L::kBand + warp * L::kRowsPerWarp;
+    const int row = warp_r0 + lane / L::kLanesPerRow;
+    const float rowf = (float)row;
+    const float warp_lo = (float)warp_r0;
+    const float warp_hi = (float)(warp_r0 + L::kRowsPerWarp);
+
+    float4 acc[L::kPx];
 #pragma unroll
-  for (int i = 0; i < kPx; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < L::kPx; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int it = first; it < last; ++it) {
-    if (tid < segs) {
-      const float4 v = lines[(size_t)it * segs + tid];
-      s_edges[tid] = edge_params(v.x, v.y, v.z, v.w);
-    }
-    if (tid < k_stops) {
-      s_off[tid] = stop_off[(size_t)it * k_stops + tid];
-      s_col[tid] = stop_col[(size_t)it * k_stops + tid];
-    }
-    if (tid < SVGR_N_FPARAMS) s_fp[tid] = fparams[(size_t)it * SVGR_N_FPARAMS + tid];
-    if (tid < SVGR_N_IPARAMS) s_ip[tid] = iparams[(size_t)it * SVGR_N_IPARAMS + tid];
-    __syncthreads();
+    for (int g0 = first; g0 < last; g0 += kItems, ++gi) {
+      // this group's copies have landed, and every warp is done with the
+      // buffer the next group loads into: this unit's next group, or the
+      // next unit's first, so its parameters arrive while this one renders
+      cp_async_wait_all();
+      __syncthreads();
+      if (g0 + kItems < last) {
+        stage(gi + 1, g0 + kItems, last - g0 - kItems);
+      } else if (next_first < next_last) {
+        stage(gi + 1, next_first, next_last - next_first);
+      }
+      cp_async_commit();
+      const float* buf = smem + (gi & 1) * st.size;
+      const int n_group = min(kItems, last - g0);
 
-    const int kind = s_ip[SVGR_I_KIND];
-    const int rule = s_ip[SVGR_I_RULE];
-    const int spread = s_ip[SVGR_I_SPREAD];
-    const int big_idx = s_ip[SVGR_I_BIG];
-    const int clip_idx = s_ip[SVGR_I_CLIP];
-    const int field_idx = s_ip[SVGR_I_FIELD];
-    const int tex_idx = s_ip[SVGR_I_TEX];
-    const int mask_idx = s_ip[SVGR_I_MASK];
-    const float opacity = s_fp[SVGR_F_OPACITY];
-    const float4 color = make_float4(
-        s_fp[SVGR_F_COLOR], s_fp[SVGR_F_COLOR + 1], s_fp[SVGR_F_COLOR + 2],
-        s_fp[SVGR_F_COLOR + 3]);
-    const float* carry_row = carry + (size_t)it * T;
-    const float* big = (big_wind != nullptr && big_idx >= 0)
-                           ? big_wind + (size_t)big_idx * T * T : nullptr;
-    const float* clip = (clips != nullptr && clip_idx >= 0)
-                            ? clips + (size_t)clip_idx * T * T : nullptr;
-    const float4* fld = (field != nullptr && field_idx >= 0)
-                            ? field + (size_t)field_idx * T * T : nullptr;
-    const float4* tex = (pool != nullptr && tex_idx >= 0)
-                            ? pool + (size_t)tex_idx * T * T : nullptr;
-    const float4* msk = (pool != nullptr && mask_idx >= 0)
-                            ? pool + (size_t)mask_idx * T * T : nullptr;
+      for (int i = 0; i < n_group; ++i) {
+        const int it = g0 + i;
+        const float* s_fp = buf + st.fp + i * SVGR_N_FPARAMS;
+        const int* s_ip =
+            reinterpret_cast<const int*>(buf + st.ip) + i * SVGR_N_IPARAMS;
+        const float* s_off = buf + st.off + i * k_stops;
+        const float4* s_col =
+            reinterpret_cast<const float4*>(buf + st.col) + i * k_stops;
+        const float4* s_lines =
+            reinterpret_cast<const float4*>(buf + st.lines) + i * segs;
+
+        const int kind = s_ip[SVGR_I_KIND];
+        const int rule = s_ip[SVGR_I_RULE];
+        const int spread = s_ip[SVGR_I_SPREAD];
+        const int big_idx = s_ip[SVGR_I_BIG];
+        const int clip_idx = s_ip[SVGR_I_CLIP];
+        const int field_idx = s_ip[SVGR_I_FIELD];
+        const int tex_idx = s_ip[SVGR_I_TEX];
+        const int mask_idx = s_ip[SVGR_I_MASK];
+        const float opacity = s_fp[SVGR_F_OPACITY];
+        const float4 color = make_float4(
+            s_fp[SVGR_F_COLOR], s_fp[SVGR_F_COLOR + 1], s_fp[SVGR_F_COLOR + 2],
+            s_fp[SVGR_F_COLOR + 3]);
+        const float* carry_row = carry + (size_t)it * T;
+        const float* big = (big_wind != nullptr && big_idx >= 0)
+                               ? big_wind + (size_t)big_idx * T * T : nullptr;
+        const float* clip = (clips != nullptr && clip_idx >= 0)
+                                ? clips + (size_t)clip_idx * T * T : nullptr;
+        const float4* fld = (field != nullptr && field_idx >= 0)
+                                ? field + (size_t)field_idx * T * T : nullptr;
+        const float4* tex = (pool != nullptr && tex_idx >= 0)
+                                ? pool + (size_t)tex_idx * T * T : nullptr;
+        const float4* msk = (pool != nullptr && mask_idx >= 0)
+                                ? pool + (size_t)mask_idx * T * T : nullptr;
+
+        // the inline winding: this warp's live edges, compacted in edge
+        // order, then kGroup at a time
+        float wind[L::kPx];
+#pragma unroll
+        for (int j = 0; j < L::kPx; ++j) wind[j] = 0.f;
+        if (big == nullptr) {
+          __syncwarp();  // the previous item's edges are read
+          int kept = 0;
+          for (int e0 = 0; e0 < segs; e0 += 32) {
+            const int e = e0 + lane;
+            EdgeParams p;
+            bool keep = false;
+            if (e < segs) {
+              const float4 v = s_lines[e];
+              p = edge_params(v.x, v.y, v.z, v.w);
+              keep = p.sign != 0.f && p.y_hi > warp_lo && p.y_lo < warp_hi;
+            }
+            const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+            if (keep) s_kept[kept + __popc(ballot & ((1u << lane) - 1u))] = p;
+            kept += __popc(ballot);
+          }
+          __syncwarp();
+          for (int k = 0; k < kept; k += kGroup) {
+#pragma unroll
+            for (int j = 0; j < L::kPx; ++j) {
+              const float col = (float)(col0 + j * (T / 2));
+              float c[kGroup];
+#pragma unroll
+              for (int g = 0; g < kGroup; ++g) {
+                // past the last kept edge: an exact 0.0, which the sum
+                // adds without changing a bit
+                c[g] = k + g < kept ? edge_contrib_flat(s_kept[k + g], rowf, col)
+                                    : 0.f;
+              }
+#pragma unroll
+              for (int g = 0; g < kGroup; ++g) wind[j] += c[g];
+            }
+          }
+        }
 
 #pragma unroll
-    for (int i = 0; i < kPx; ++i) {
-      const int px = tid + i * kThreads;
-      const int row = px / T;
-      const int col = px % T;
+        for (int j = 0; j < L::kPx; ++j) {
+          const int col = col0 + j * (T / 2);
+          const int px = row * T + col;
+          float w = big != nullptr ? big[px] : wind[j];
+          w = w + carry_row[row];
+          float cov = rule ? fabsf(py_remainder(w + 1.f, 2.f) - 1.f)
+                           : fminf(fabsf(w), 1.f);
+          if (clip != nullptr) cov = cov * clip[px];
+          float mask = cov < 1e-6f ? 0.f : cov;
+          mask = mask * opacity;
+          if (msk != nullptr) {
+            const float4 m = msk[px];
+            mask = mask * (m.x * 0.2125f + m.y * 0.7154f + m.z * 0.072f);
+          }
 
-      float w;
-      if (big != nullptr) {
-        w = big[px];
-      } else {
-        w = 0.f;
-        for (int k = 0; k < segs; ++k) {
-          if (s_edges[k].sign == 0.f) continue;  // padding: exact zero
-          w += edge_contrib(s_edges[k], (float)row, (float)col);
+          float4 paint;
+          if (fld != nullptr) {
+            paint = fld[px];
+          } else if (tex != nullptr) {
+            paint = tex[px];
+          } else if (kind == SVGR_PAINT_SOLID) {
+            paint = color;
+          } else if (kind == SVGR_PAINT_PATTERN) {
+            paint = pattern_paint(s_fp, s_ip, row, col, patterns, pat_h, pat_w);
+          } else {
+            paint = gradient_paint(kind, spread, s_fp, row, col, s_off, s_col,
+                                   k_stops);
+          }
+          const float4 src = make_float4(mask * paint.x, mask * paint.y,
+                                         mask * paint.z, mask * paint.w);
+          const float keep = 1.f - src.w;
+          acc[j].x = src.x + acc[j].x * keep;
+          acc[j].y = src.y + acc[j].y * keep;
+          acc[j].z = src.z + acc[j].z * keep;
+          acc[j].w = src.w + acc[j].w * keep;
         }
       }
-      w = w + carry_row[row];
-      float cov = rule ? fabsf(py_remainder(w + 1.f, 2.f) - 1.f)
-                       : fminf(fabsf(w), 1.f);
-      if (clip != nullptr) cov = cov * clip[px];
-      float mask = cov < 1e-6f ? 0.f : cov;
-      mask = mask * opacity;
-      if (msk != nullptr) {
-        const float4 m = msk[px];
-        mask = mask * (m.x * 0.2125f + m.y * 0.7154f + m.z * 0.072f);
-      }
-
-      float4 paint;
-      if (fld != nullptr) {
-        paint = fld[px];
-      } else if (tex != nullptr) {
-        paint = tex[px];
-      } else if (kind == SVGR_PAINT_SOLID) {
-        paint = color;
-      } else if (kind == SVGR_PAINT_PATTERN) {
-        paint = pattern_paint(s_fp, s_ip, row, col, patterns, pat_h, pat_w);
-      } else {
-        paint = gradient_paint(kind, spread, s_fp, row, col, s_off, s_col,
-                               k_stops);
-      }
-      const float4 src = make_float4(mask * paint.x, mask * paint.y,
-                                     mask * paint.z, mask * paint.w);
-      const float keep = 1.f - src.w;
-      acc[i].x = src.x + acc[i].x * keep;
-      acc[i].y = src.y + acc[i].y * keep;
-      acc[i].z = src.z + acc[i].z * keep;
-      acc[i].w = src.w + acc[i].w * keep;
     }
-    __syncthreads();
-  }
+    // an empty unit staged nothing: the next unit's first group goes to
+    // the buffer the next group reads (its last reader passed a barrier)
+    if (first == last && next_first < next_last) {
+      stage(gi, next_first, next_last - next_first);
+      cp_async_commit();
+    }
 
-  float4* dst = out + (size_t)tile * T * T;
+    float4* dst = out + ((size_t)tile * T + row) * T + col0;
 #pragma unroll
-  for (int i = 0; i < kPx; ++i) dst[tid + i * kThreads] = acc[i];
+    for (int j = 0; j < L::kPx; ++j) dst[j * (T / 2)] = acc[j];
+    first = next_first;
+    last = next_last;
+  }
 }
 
 template <int T>
 cudaError_t launch(const float* lines, int segs, const float* carry,
-                   const int* tile_id, int n_items, const int* iparams,
+                   const int* runs, const int* iparams,
                    const float* fparams, const float* stop_off,
                    const float* stop_col, int k_stops, const float* big_wind,
                    const float* clips, const float* field, const float* pool,
                    const float* patterns, int pat_h, int pat_w, float* out,
                    int num_tiles, cudaStream_t stream) {
-  scene_kernel<T><<<num_tiles, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(lines), segs, carry, tile_id, n_items,
-      iparams, fparams, stop_off, reinterpret_cast<const float4*>(stop_col),
-      k_stops, big_wind, clips, reinterpret_cast<const float4*>(field),
+  using L = Layout<T>;
+  const long long units = (long long)num_tiles * (T / L::kBand);
+  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * stage_layout(segs, k_stops).size * sizeof(float) +
+                      (size_t)L::kWarps * kKeptSlots * sizeof(EdgeParams);
+  cudaError_t rc;
+  if (smem > 48 * 1024) {
+    rc = cudaFuncSetAttribute(scene_kernel<T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  // as many blocks as the card holds at once, each walking its units
+  int device = 0, sms = 0, per_sm = 0;
+  if ((rc = cudaGetDevice(&device)) != cudaSuccess) return rc;
+  if ((rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess) {
+    return rc;
+  }
+  if ((rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, scene_kernel<T>, L::kThreads, smem)) != cudaSuccess) {
+    return rc;
+  }
+  const long long blocks = std::min<long long>(units, (long long)sms * std::max(per_sm, 1));
+  scene_kernel<T><<<(unsigned)blocks, L::kThreads, smem, stream>>>(
+      reinterpret_cast<const float4*>(lines), segs, carry, runs, iparams,
+      fparams, stop_off, reinterpret_cast<const float4*>(stop_col), k_stops,
+      big_wind, clips, reinterpret_cast<const float4*>(field),
       reinterpret_cast<const float4*>(pool),
       reinterpret_cast<const float4*>(patterns), pat_h, pat_w,
-      reinterpret_cast<float4*>(out));
+      reinterpret_cast<float4*>(out), num_tiles);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int svgr_scene_tiles(const float* lines, int segs,
-                                const float* carry, const int* tile_id,
-                                int n_items, const int* iparams,
+                                const float* carry, const int* runs,
+                                const int* iparams,
                                 const float* fparams, const float* stop_off,
                                 const float* stop_col, int k_stops,
                                 const float* big_wind, const float* clips,
@@ -314,17 +514,17 @@ extern "C" int svgr_scene_tiles(const float* lines, int segs,
   }
   switch (tile) {
     case 16:
-      return (int)launch<16>(lines, segs, carry, tile_id, n_items, iparams,
+      return (int)launch<16>(lines, segs, carry, runs, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
                              clips, field, pool, patterns, pat_h, pat_w,
                              out, num_tiles, stream);
     case 32:
-      return (int)launch<32>(lines, segs, carry, tile_id, n_items, iparams,
+      return (int)launch<32>(lines, segs, carry, runs, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
                              clips, field, pool, patterns, pat_h, pat_w,
                              out, num_tiles, stream);
     case 64:
-      return (int)launch<64>(lines, segs, carry, tile_id, n_items, iparams,
+      return (int)launch<64>(lines, segs, carry, runs, iparams,
                              fparams, stop_off, stop_col, k_stops, big_wind,
                              clips, field, pool, patterns, pat_h, pat_w,
                              out, num_tiles, stream);

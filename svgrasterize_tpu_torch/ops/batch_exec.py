@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import coverage
@@ -87,10 +88,20 @@ class DevicePlan(NamedTuple):
     field: torch.Tensor | None  # (F, T, T, 4) f32 collapsed-run paint fields
     reads_pool: bool = False  # some item has tex_idx or mask_idx >= 0
     patterns: torch.Tensor | None = None  # (Q, TH, TW, 4) f32 pattern-tile atlas
+    runs: torch.Tensor | None = None  # (num_tiles + 1,) i32 tile_runs, the scene kernel's
 
     @property
     def num_tiles(self) -> int:
         return self.grid[0] * self.grid[1]
+
+
+def tile_runs(tile_id, num_tiles: int) -> np.ndarray:
+    """(num_tiles + 1,) int32 run table of a sorted tile_id stream: tile t's
+    items are [runs[t], runs[t + 1]) (padding items, at num_tiles, follow
+    the last run).  Made once per plan at upload; the scene kernel reads
+    its tile's run from it."""
+    return np.searchsorted(np.asarray(tile_id), np.arange(num_tiles + 1),
+                           side="left").astype(np.int32)
 
 
 def _prepass_winding(arrays, t_size: int):

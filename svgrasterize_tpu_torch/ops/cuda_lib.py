@@ -40,14 +40,14 @@ _SIGNATURES = {
         _vp, _int, _vp,
     ),
     "svgr_scene_tiles": (
-        _vp, _int, _vp, _vp, _int, _vp, _vp, _vp, _vp, _int,
+        _vp, _int, _vp, _vp, _vp, _vp, _vp, _vp, _int,
         _vp, _vp, _vp, _vp, _vp, _int, _int, _vp, _int, _int, _vp,
     ),
     "svgr_winding": (_vp, _int, _vp, _int, _int, _vp),
     "svgr_winding_batch": (_vp, _vp, _int, _int, _vp, _vp),
-    "svgr_blur_chunk": (
-        _vp, _int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
-        _int, _int, _vp, _int, _vp,
+    "svgr_blur_level": (
+        _vp, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+        _vp, _int, _vp,
     ),
     "svgr_pool_rows": (_vp, _int, _vp, _int, _vp, _vp, _int, _int, _vp),
 }

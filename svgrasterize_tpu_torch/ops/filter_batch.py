@@ -20,14 +20,17 @@ as one batched computation (the JAX package's ops/filter_batch.py):
 Host planning (plan_level, build_chunks) is numpy and must produce the same
 arrays as the JAX package's.  Batching is always on and size classes are
 exact (the JAX defaults; its SVGR_BLUR_BATCH and SVGR_CHUNK_POW2 knobs are
-not ported).  apply_chunk is the plain PyTorch version of the blur-chunk
-kernel (csrc/blur_chunk.cu, wrapper ops/fused_exec.blur_chunk).
+not ported).  pack_level packs a level's chunks for the blur-chunk kernel
+(csrc/blur_chunk.cu, wrapper ops/fused_exec.blur_chunk), one launch per
+level; apply_level, apply_chunk per chunk, is its plain PyTorch version.
 
 Parts that are not a lone separable blur (rotated kernels, multi-primitive
 chains, per-primitive subregions) keep the per-part path.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -284,18 +287,150 @@ def _planar_convert(x, to_straight: bool, gamma: str | None, axis: int = 1):
     return x
 
 
-def upload_chunk(ck: dict, device) -> dict:
-    """A chunk dict with its arrays as tensors on `device` (int32 indices,
-    f32 band operators, src_alpha as int32 0/1)."""
+# columns of a packed level's chunk table (csrc/kernels.h SVGR_BT_*)
+LEVEL_TABLE_COLS = 13
+(LT_OUT, LT_B, LT_NSI, LT_NSJ, LT_NOI, LT_NOJ, LT_LINEAR, LT_LUT, LT_BH, LT_BW,
+ LT_PART, LT_HB, LT_WB) = range(LEVEL_TABLE_COLS)
+_INT32_MAX = 2**31 - 1
+# out rows one blur-chunk kernel block computes, and the span columns one
+# step of its walk covers at each tile size (csrc/blur_chunk.cu kRows, kC)
+BLUR_ROWS = 16
+BLUR_STEP = {16: 16, 32: 32, 64: 32}
+
+
+def band_tables(ck: dict, t_size: int):
+    """The nonzero columns [lo, hi) of a chunk's band operators: of BH's
+    rows per (part, BLUR_ROWS-row block of the out span),
+    (B * NOi * T / BLUR_ROWS, 2) int32, the rows a kernel block computes,
+    and of BW's rows per (part, out-tile column), (B * NOj, 2) int32;
+    lo = hi = 0 where the rows are all zero (a part smaller than its chunk
+    pads with such tiles)."""
+
+    def spans(m, rows):
+        m = np.asarray(m)
+        n_in = m.shape[-1]
+        nz = (m.reshape(-1, rows, n_in) != 0).any(axis=1)
+        has = nz.any(axis=-1)
+        lo = np.where(has, nz.argmax(axis=-1), 0)
+        hi = np.where(has, n_in - nz[:, ::-1].argmax(axis=-1), 0)
+        return np.stack([lo, hi], axis=-1).astype(np.int32)
+
+    return spans(ck["bh"], BLUR_ROWS), spans(ck["bw"], t_size)
+
+
+class BlurLevel(NamedTuple):
+    """A level's blur chunks packed for one blur-chunk launch
+    (csrc/blur_chunk.cu): the chunks' arrays back to back on the device,
+    with a per-chunk table of offsets, and the level's pool write."""
+
+    chunks: list  # per chunk: its dict, arrays on the device (views of the below)
+    order: tuple  # each packed chunk's index in the list pack_level was given
+    lut: torch.Tensor  # (sum B * NSi * NSj,) int32
+    bh: torch.Tensor  # (sum B * NOi * T * NSi * T,) f32
+    bw: torch.Tensor  # (sum B * NOj * T * NSj * T,) f32
+    src_alpha: torch.Tensor  # (sum B,) int32
+    hband: torch.Tensor  # (sum B * NOi * T / BLUR_ROWS, 2) int32, band_tables
+    wband: torch.Tensor  # (sum B * NOj, 2) int32
+    table: torch.Tensor  # (chunks, LEVEL_TABLE_COLS) int32
+    out_idx: torch.Tensor  # (n,) int32 out tiles of the level's output to keep
+    pool_idx: torch.Tensor  # (n,) int32 their pool rows
+    tiles: int  # the level's out tiles, sum B * NOi * NOj
+
+
+def _level_table(chunks, t_size: int) -> np.ndarray:
+    """The (chunks, LEVEL_TABLE_COLS) int64 table of a level's chunks: each
+    one's first out tile, sizes, colorspace and offsets into the
+    concatenated arrays (exclusive prefix sums of their sizes)."""
+    t2 = t_size * t_size
+    rows = []
+    for ck in chunks:
+        b, nsi, nsj, noi, noj = (int(ck[k]) for k in ("B", "NSi", "NSj", "NOi", "NOj"))
+        rows.append((b * noi * noj, b, nsi, nsj, noi, noj, int(bool(ck["chain_linear"])),
+                     b * nsi * nsj, b * noi * nsi * t2, b * noj * nsj * t2, b,
+                     b * noi * t_size // BLUR_ROWS, b * noj))
+    sizes = np.asarray(rows, np.int64).reshape(-1, LEVEL_TABLE_COLS)
+    table = sizes.copy()
+    for col in (LT_OUT, LT_LUT, LT_BH, LT_BW, LT_PART, LT_HB, LT_WB):
+        table[:, col] = np.cumsum(sizes[:, col]) - sizes[:, col]
+    return table
+
+
+def _longest_walk(ck: dict, hband, wband, t_size: int) -> int:
+    """Steps of the longest kernel block of a chunk (an upper bound: the
+    widest BH band times the widest BW band of a part, plus its Z stages)."""
+    step = BLUR_STEP[t_size]
+
+    def steps(bands, n):
+        lo, hi = bands[:, 0], bands[:, 1]
+        k = np.where(lo < hi, -(-(hi - lo // step * step) // step), 0)
+        return k.reshape(ck["B"], n).max(axis=1)
+
+    n_h = steps(hband, ck["NOi"] * t_size // BLUR_ROWS)
+    n_w = steps(wband, ck["NOj"])
+    return int((n_h * n_w + n_w).max())
+
+
+def pack_level(chunks, t_size: int, device) -> BlurLevel | None:
+    """Pack a level's chunks (build_chunks' numpy dicts) into a BlurLevel
+    on `device`, once per program; None for a level without chunks.
+
+    The chunks are packed longest kernel walk first (BlurLevel.order), and
+    each chunk's output lands at its first out tile of the level's output
+    (table column LT_OUT), so the level's pool write is one gather:
+    out_idx, each chunk's offset by its first out tile, into pool_idx.
+    """
+    if not chunks:
+        return None
     dev = torch.device(device)
-    out = dict(ck)
-    for key, dtype in (("lut", np.int32), ("bh", np.float32), ("bw", np.float32),
-                       ("src_alpha", np.int32), ("out_idx", np.int32),
-                       ("pool_idx", np.int32)):
-        out[key] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(ck[key]).astype(dtype))
-        ).to(dev)
-    return out
+    bands = [band_tables(ck, t_size) for ck in chunks]
+    # the chunks with the longest blocks first, so those start first
+    order = sorted(range(len(chunks)),
+                   key=lambda i: -_longest_walk(chunks[i], *bands[i], t_size))
+    chunks, bands = [chunks[i] for i in order], [bands[i] for i in order]
+    table = _level_table(chunks, t_size)
+    cat = {
+        "lut": np.concatenate([np.asarray(ck["lut"], np.int32).reshape(-1) for ck in chunks]),
+        "bh": np.concatenate([np.asarray(ck["bh"], np.float32).reshape(-1) for ck in chunks]),
+        "bw": np.concatenate([np.asarray(ck["bw"], np.float32).reshape(-1) for ck in chunks]),
+        "src_alpha": np.concatenate([np.asarray(ck["src_alpha"]).astype(np.int32)
+                                     for ck in chunks]),
+    }
+    if max(a.size for a in cat.values()) > _INT32_MAX:
+        raise ValueError("pack_level: the level exceeds 32-bit offsets")
+    up = {k: torch.from_numpy(v).to(dev) for k, v in cat.items()}
+    out_idx = np.concatenate([np.asarray(ck["out_idx"], np.int64) + off
+                              for ck, off in zip(chunks, table[:, LT_OUT])])
+    pool_idx = np.concatenate([np.asarray(ck["pool_idx"], np.int64) for ck in chunks])
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    views = []
+    for ck, row in zip(chunks, table):
+        b, nsi, nsj, noi, noj = (int(v) for v in row[LT_B:LT_NOJ + 1])
+        t = t_size
+        views.append(dict(
+            ck,
+            lut=up["lut"][row[LT_LUT]:row[LT_LUT] + b * nsi * nsj].view(b, nsi * nsj),
+            bh=up["bh"][row[LT_BH]:row[LT_BH] + b * noi * t * nsi * t].view(b, noi * t, nsi * t),
+            bw=up["bw"][row[LT_BW]:row[LT_BW] + b * noj * t * nsj * t].view(b, noj * t, nsj * t),
+            src_alpha=up["src_alpha"][row[LT_PART]:row[LT_PART] + b],
+            out_idx=i32(ck["out_idx"]),
+            pool_idx=i32(ck["pool_idx"]),
+        ))
+    return BlurLevel(
+        chunks=views, order=tuple(order), **up,
+        hband=i32(np.concatenate([h for h, _w in bands])),
+        wband=i32(np.concatenate([w for _h, w in bands])),
+        table=i32(table), out_idx=i32(out_idx), pool_idx=i32(pool_idx),
+        tiles=int(table[-1, LT_OUT] + table[-1, LT_B] * table[-1, LT_NOI] * table[-1, LT_NOJ]),
+    )
+
+
+def apply_level(canvas, level: BlurLevel, t_size: int, linear_rgb: bool):
+    """Plain version of a level's blur-chunk launch: apply_chunk per chunk,
+    the outputs back to back, (level.tiles, T, T, 4)."""
+    return torch.cat([apply_chunk(canvas, ck, t_size, linear_rgb) for ck in level.chunks])
 
 
 def apply_chunk(canvas, ck: dict, t_size: int, linear_rgb: bool):

@@ -5,7 +5,7 @@ Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches its kernel on PyTorch's current stream through the ctypes
 library (ops/cuda_lib.py) and raises if the launch returns a CUDA error.
 Tensors on the CPU go to the kernel's plain PyTorch version
-(ops/batch_exec.py, ops/filter_batch.apply_chunk, ops/coverage.winding)
+(ops/batch_exec.py, ops/filter_batch.apply_level, ops/coverage.winding)
 instead; that is the only case that does.  A tensor on any other device
 raises.
 
@@ -135,7 +135,9 @@ def scene_tiles(plan: DevicePlan, big_wind, pool=None):
     f32, i32 = torch.float32, torch.int32
     _check(plan.lines, "lines", f32, (n, segs, 4), device)
     _check(plan.carry, "carry", f32, (n, t), device)
-    _check(plan.tile_id, "tile_id", i32, (n,), device)
+    if plan.runs is None:
+        raise ValueError("scene_tiles: the plan has no run table (batch_exec.tile_runs)")
+    _check(plan.runs, "runs", i32, (plan.num_tiles + 1,), device)
     _check(plan.iparams, "iparams", i32, (n, N_IPARAMS), device)
     _check(plan.fparams, "fparams", f32, (n, N_FPARAMS), device)
     _check(plan.stop_offsets, "stop_offsets", f32, (n, k_stops), device)
@@ -148,6 +150,8 @@ def scene_tiles(plan: DevicePlan, big_wind, pool=None):
         _check(plan.field, "field", f32, (None, t, t, 4), device)
     if pool is not None:
         _check(pool, "pool", f32, (None, t, t, 4), device)
+    if plan.lines.data_ptr() % 16 or plan.stop_colors.data_ptr() % 16:
+        raise ValueError("scene_tiles: lines and stop_colors must be 16-byte aligned")
     atlas = plan.patterns  # upload sets it for every plan with pattern items
     if atlas is not None:
         _check(atlas, "patterns", f32, (None, None, None, 4), device)
@@ -158,7 +162,7 @@ def scene_tiles(plan: DevicePlan, big_wind, pool=None):
     out = torch.empty((num_tiles, t, t, 4), dtype=f32, device=device)
     rc = lib.svgr_scene_tiles(
         plan.lines.data_ptr(), segs, plan.carry.data_ptr(),
-        plan.tile_id.data_ptr(), n, plan.iparams.data_ptr(),
+        plan.runs.data_ptr(), plan.iparams.data_ptr(),
         plan.fparams.data_ptr(), plan.stop_offsets.data_ptr(),
         plan.stop_colors.data_ptr(), k_stops, _ptr(big_wind),
         _ptr(plan.clips), _ptr(plan.field), _ptr(pool), _ptr(atlas),
@@ -178,40 +182,40 @@ def execute_items_fused(plan: DevicePlan, pool=None):
     return scene_tiles(plan, prepass_winding(plan.bigs, plan.tile), pool)
 
 
-_GAMMA_CODE = {None: 0, "to_linear": 1, "to_srgb": 2}
+def blur_chunk(canvas, level: filter_batch.BlurLevel, t_size: int, linear_rgb: bool):
+    """Every out-span tile (level.tiles, T, T, 4) f32 of a level's blur
+    chunks, each chunk's at its first out tile (table column LT_OUT).
 
-
-def blur_chunk(canvas, ck: dict, t_size: int, linear_rgb: bool):
-    """Every out-span tile (B * NOi * NOj, T, T, 4) f32 of a blur chunk.
-
-    canvas: a level's pass rows (R, T, T, 4); ck: a chunk of
-    ops/filter_batch.build_chunks with its arrays on the canvas's device
-    (filter_batch.upload_chunk).  The level's pool update picks
-    ck["out_idx"] from the result.
+    canvas: the level's pass rows (R, T, T, 4); level: its chunks packed
+    by filter_batch.pack_level on the canvas's device.  The level's pool
+    update picks level.out_idx from the result.  On the card one launch
+    computes every chunk.
     """
     device = canvas.device
     if not _kernel_device(device, "blur_chunk"):
-        return filter_batch.apply_chunk(canvas, ck, t_size, linear_rgb)
+        return filter_batch.apply_level(canvas, level, t_size, linear_rgb)
     t = t_size
     if t not in KERNEL_TILES:
         raise ValueError(f"blur_chunk: tile {t} not in {KERNEL_TILES}")
-    B, nsi, nsj, noi, noj = ck["B"], ck["NSi"], ck["NSj"], ck["NOi"], ck["NOj"]
+    n = level.table.shape[0]
     f32, i32 = torch.float32, torch.int32
     _check(canvas, "canvas", f32, (None, t, t, 4), device)
-    _check(ck["lut"], "lut", i32, (B, nsi * nsj), device)
-    _check(ck["bh"], "bh", f32, (B, noi * t, nsi * t), device)
-    _check(ck["bw"], "bw", f32, (B, noj * t, nsj * t), device)
-    _check(ck["src_alpha"], "src_alpha", i32, (B,), device)
-    gamma_in, gamma_out = filter_batch.gammas(ck["chain_linear"], linear_rgb)
+    _check(level.table, "table", i32, (n, filter_batch.LEVEL_TABLE_COLS), device)
+    for name in ("lut", "src_alpha"):
+        _check(getattr(level, name), name, i32, (None,), device)
+    for name in ("bh", "bw"):
+        _check(getattr(level, name), name, f32, (None,), device)
+    for name in ("hband", "wband"):
+        _check(getattr(level, name), name, i32, (None, 2), device)
     from . import cuda_lib
 
     lib = cuda_lib.load()
-    out = torch.empty((B * noi * noj, t, t, 4), dtype=f32, device=device)
-    rc = lib.svgr_blur_chunk(
-        canvas.data_ptr(), canvas.shape[0], ck["lut"].data_ptr(),
-        ck["bh"].data_ptr(), ck["bw"].data_ptr(), ck["src_alpha"].data_ptr(),
-        B, nsi, nsj, noi, noj, _GAMMA_CODE[gamma_in], _GAMMA_CODE[gamma_out],
-        out.data_ptr(), t, _stream(device),
+    out = torch.empty((level.tiles, t, t, 4), dtype=f32, device=device)
+    rc = lib.svgr_blur_level(
+        canvas.data_ptr(), canvas.shape[0], level.lut.data_ptr(), level.bh.data_ptr(),
+        level.bw.data_ptr(), level.src_alpha.data_ptr(), level.hband.data_ptr(),
+        level.wband.data_ptr(), level.table.data_ptr(), n, level.tiles,
+        int(linear_rgb), out.data_ptr(), t, _stream(device),
     )
     _raise_on(rc, "blur_chunk")
     blur_chunk.launches += 1

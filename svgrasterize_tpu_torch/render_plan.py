@@ -1930,6 +1930,7 @@ def _upload_items(items, bigs, clips, tile: int, grid, device, patterns=None) ->
         field=up(field) if field is not None else None,
         reads_pool=bool((ip[:, be.I_TEX] >= 0).any() or (ip[:, be.I_MASK] >= 0).any()),
         patterns=patterns if (kind == PAINT_PATTERN).any() else None,
+        runs=up(be.tile_runs(items["tile_id"], int(np.prod(grid))), np.int32),
     )
 
 
@@ -1962,7 +1963,7 @@ class _Level(NamedTuple):
     needs_pool: bool  # its items read rows of earlier levels
     copy_rows: tuple | None  # (canvas rows, pool rows) of its plain passes
     filters: list  # per filter part not batched: (part, out rows, pool rows)
-    chunks: list  # batched blur chunks (filter_batch.upload_chunk)
+    blur: Any  # its batched blur chunks (filter_batch.pack_level), or None
 
 
 class DeviceProgram(NamedTuple):
@@ -2009,7 +2010,7 @@ def upload_program(lowered, device) -> DeviceProgram:
             needs_pool=bool(g["needs_pool"]),
             copy_rows=(rows(copy_src), rows(copy_dst)) if copy_src else None,
             filters=filters,
-            chunks=[filter_batch.upload_chunk(ck, dev) for ck in chunks],
+            blur=filter_batch.pack_level(chunks, lowered.tile, dev),
         ))
     return DeviceProgram(levels, plan_from_lowered(lowered, dev, atlas), pool_total,
                          int(lowered.tile), tuple(lowered.grid))
@@ -2019,7 +2020,7 @@ class _Ops(NamedTuple):
     """The executors a program runs through."""
 
     execute: Any  # (DevicePlan, pool | None) -> canvas tiles
-    blur_chunk: Any  # (canvas, chunk, tile, linear_rgb) -> out-span tiles
+    blur: Any  # (canvas, BlurLevel, tile, linear_rgb) -> the level's out-span tiles
     pool_rows: Any  # (pool, src, src_idx, dst_idx) -> pool, in place
 
 
@@ -2032,7 +2033,7 @@ KERNEL_OPS = _Ops(fused_exec.execute_items_fused, fused_exec.blur_chunk,
 def _plain_ops() -> _Ops:
     from .ops import filter_batch
 
-    return _Ops(be.execute_items, filter_batch.apply_chunk, be._pool_rows)
+    return _Ops(be.execute_items, filter_batch.apply_level, be._pool_rows)
 
 
 def new_pool(program: DeviceProgram):
@@ -2073,18 +2074,19 @@ def _apply_group_post(canvas, pool, level: _Level, grid_w, viewport, linear_rgb,
     """A level's post stage: its new rows written into the pool in place.
 
     One pool_rows launch per output block: the level's plain pass rows
-    (straight from the canvas), each filter part's output tiles, each blur
-    chunk's out tiles (picked by out_idx).  This replaces the JAX package's
-    out-tile gather, row concatenation, permutation and level update.
+    (straight from the canvas), each filter part's output tiles, and the
+    out tiles of all its blur chunks (one blur launch, picked by the
+    packed level's out_idx).  This replaces the JAX package's out-tile
+    gather, row concatenation, permutation and level update.
     """
     if level.copy_rows is not None:
         ops.pool_rows(pool, canvas, *level.copy_rows)
     for part, src_idx, dst_idx in level.filters:
         tiles = _apply_part_filter(canvas, part, grid_w, viewport, linear_rgb, t_size)
         ops.pool_rows(pool, tiles, src_idx, dst_idx)
-    for ck in level.chunks:
-        tiles = ops.blur_chunk(canvas, ck, t_size, linear_rgb)
-        ops.pool_rows(pool, tiles, ck["out_idx"], ck["pool_idx"])
+    if level.blur is not None:
+        tiles = ops.blur(canvas, level.blur, t_size, linear_rgb)
+        ops.pool_rows(pool, tiles, level.blur.out_idx, level.blur.pool_idx)
 
 
 def _part_out_local(part, grid_w: int) -> list:

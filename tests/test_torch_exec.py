@@ -5,8 +5,9 @@ and scene tiles, svgrasterize_tpu_torch/ops/batch_exec.py) run here on the
 CPU, fed the exact plan the JAX package lowered (plan_from_lowered).  JAX
 runs on its CPU backend twice: SVGR_FUSED=0 is its XLA executor,
 SVGR_FUSED=interp its Pallas kernels in interpret mode.  The prepass is
-also held on several classes in one call, and its kernel's band-culling
-rule is checked to change no bit of the field.  The kernels themselves only
+also held on several classes in one call, and the band-culling rules of
+the prepass and scene kernels are checked to change no bit of the
+winding.  The kernels themselves only
 run on a CUDA card, where chip_smoke.py holds them against these plain
 versions.
 """
@@ -148,6 +149,55 @@ def test_prepass_band_culling_is_exact(tile):
         assert float(per_edge[misses, r].abs().max()) == 0.0
     plain = batch_exec._prepass_winding([torch.from_numpy(edges)[None]], tile)[0]
     assert float((plain - unculled).abs().max()) <= PREPASS_TOL
+
+
+def _scene_item_edges(rng, tile: int) -> np.ndarray:
+    """One item's SMALL_SEGS inline edges as the scene kernel stages them:
+    band-split edges as lowering makes them, then raw (unsplit) ones with
+    horizontal edges among them, zero padding between and after."""
+    split = _band_edges(rng, 1, 32, tile)[0]
+    split = split[split.any(axis=1)]
+    raw = rng.uniform(-3, tile + 3, (12, 4)).astype(np.float32)
+    raw[:, 0] = np.clip(raw[:, 0], 0, tile)
+    raw[:, 2] = np.clip(raw[:, 2], 0, tile)
+    raw[::4, 2] = raw[::4, 0]  # horizontal
+    live = np.concatenate([split, np.zeros((3, 4), np.float32), raw])
+    edges = np.zeros((batch_exec.SMALL_SEGS, 4), np.float32)
+    edges[: live.shape[0]] = live[: batch_exec.SMALL_SEGS]
+    return edges
+
+
+@pytest.mark.parametrize("band", [1, 2, 4, 8])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_scene_band_culling_is_exact(tile, band):
+    """The scene kernel's culling rule: a band of rows (a warp's: 1 row at
+    T = 64, 2 at T = 32, 4 at T = 16; or a block's 8) sums only the item's inline
+    edges with sign != 0 whose [y_lo, y_hi] meets it, compacted in edge
+    order and added kGroup = 8 at a time, with exact zeros past the last.
+    Every dropped edge gives an exact 0.0 in the band, so the culled
+    winding plus the carry equals the walk over all SMALL_SEGS edges bit
+    for bit."""
+    rng = np.random.default_rng(23 + tile + band)
+    edges = _scene_item_edges(rng, tile)
+    carry = torch.from_numpy(np.round(rng.uniform(-2, 2, tile) * 2).astype(np.float32) / 2)
+    per_edge = t_cov.winding_fields(torch.from_numpy(edges)[:, None], tile, tile)
+    a0, b0 = edges[:, 0], edges[:, 2]
+    y_lo, y_hi = np.minimum(a0, b0), np.maximum(a0, b0)
+    live = a0 != b0  # sign != 0: padding rows are horizontal
+    assert (~live).sum() >= 3 and live.sum() >= 8
+    unculled = _sequential(per_edge, np.ones(len(edges), bool)) + carry[:, None]
+    for r0 in range(0, tile, band):
+        keep = live & (y_hi > r0) & (y_lo < r0 + band)
+        assert float(per_edge[~keep, r0:r0 + band].abs().max()) == 0.0
+        kept = np.flatnonzero(keep)
+        acc = torch.zeros((band, tile), dtype=torch.float32)
+        for k in range(0, len(kept), 8):
+            for g in range(8):
+                acc = acc + (per_edge[kept[k + g], r0:r0 + band] if k + g < len(kept)
+                             else torch.zeros((), dtype=torch.float32))
+        assert torch.equal(acc + carry[r0:r0 + band, None], unculled[r0:r0 + band])
+    plain = t_cov.winding_fields(torch.from_numpy(edges)[None], tile, tile)[0]
+    assert float((plain + carry[:, None] - unculled).abs().max()) <= PREPASS_TOL
 
 
 def _jax_canvas(svg, tile, mode, monkeypatch):

@@ -244,8 +244,8 @@ def test_apply_chunk_matches_jax(shape, gamma, monkeypatch):
     got_all = t_fb.apply_chunk(torch.from_numpy(canvas), ck, t, False)
     nsi, nsj, noi, noj, B = shape
     assert got_all.shape == (B * noi * noj, t, t, 4)
-    dev_ck = t_fb.upload_chunk(ck, "cpu")
-    wrapped = fused_exec.blur_chunk(torch.from_numpy(canvas), dev_ck, t, False)
+    level = t_fb.pack_level([ck], t, "cpu")  # a level of one chunk
+    wrapped = fused_exec.blur_chunk(torch.from_numpy(canvas), level, t, False)
     assert torch.equal(wrapped, got_all)
     got = got_all.numpy()[ck["out_idx"]]
 

@@ -7,6 +7,9 @@ included); the port's plain executors (the CPU path of every kernel
 wrapper) must match JAX execute_lowered under SVGR_FUSED=0 (its XLA
 executor) and SVGR_FUSED=interp (its Pallas kernels in interpret mode)
 within 1e-5; the CLI PNG must stay within 1/255 of the JAX CLI's.  The
+blur-chunk kernel's band tables and level packing are held to the chunks
+they come from: the band walk adds the dense walk's terms bit for bit, and
+a packed level writes the pool rows the per-chunk loop writes.  The
 kernels themselves run only on a CUDA card, where chip_smoke.py holds them
 against these plain versions.
 """
@@ -25,7 +28,7 @@ from svgrasterize_tpu.utils.stress import stress_doc as j_stress_doc
 import svgrasterize_tpu_torch.render_plan as trp
 from svgrasterize_tpu_torch.cli import main as torch_main
 from svgrasterize_tpu_torch.core.transform import Transform as TTransform
-from svgrasterize_tpu_torch.ops import batch_exec, fused_exec
+from svgrasterize_tpu_torch.ops import batch_exec, filter_batch, fused_exec
 from svgrasterize_tpu_torch.utils.stress import stress_doc
 
 from test_filter_batch import BLURS, MIXED
@@ -363,3 +366,225 @@ def test_interpreter_features_still_raise(svg, tmp_path, monkeypatch):
     assert torch_main([str(path), str(tmp_path / "out.png"), "--device", "cpu"]) == 0
     with open(tmp_path / "out.png", "rb") as f:
         _assert_png_close(read_png(f.read()), png)
+
+
+# documents whose passes batch blur chunks at every tile size
+CHUNK_DOCS = ["blurs", "filter_blur_offset", "mixed", "passes"]
+
+
+def _doc_chunks(name, tile):
+    chunks = [ck for g in torch_lower(DOCS[name], tile).groups for ck in g["_blur_batch"][0]]
+    assert chunks
+    return chunks
+
+
+def _random_chunks(rng, tile, rows):
+    """Random chunks over canvas rows [0, rows): parts whose crops and
+    placements differ (a small crop leaves out tiles with empty bands, as a
+    chunk's smaller parts do), -1 span tiles, both colorspaces."""
+    chunks = []
+    for _ in range(3):
+        B = int(rng.integers(1, 4))
+        nsi, nsj = (int(v) for v in rng.integers(1, 4, 2))
+        noi, noj = nsi + int(rng.integers(0, 2)), nsj + int(rng.integers(0, 2))
+
+        def band(taps, n_in, n_out):
+            crop = int(rng.integers(1, n_in + 1))
+            return filter_batch._band(taps, crop, int(rng.integers(0, n_in - crop + 1)),
+                                      int(rng.integers(-len(taps), tile)), n_out, n_in)
+
+        u = rng.random(int(rng.integers(1, 12)) | 1)
+        v = rng.random(int(rng.integers(1, 12)) | 1)
+        n_out = B * noi * noj
+        out_idx = np.sort(rng.permutation(n_out)[: n_out // 2 + 1]).astype(np.int32)
+        chunks.append({
+            "B": B, "NSi": nsi, "NSj": nsj, "NOi": noi, "NOj": noj,
+            "chain_linear": bool(rng.integers(0, 2)),
+            "lut": rng.integers(-1, rows, (B, nsi * nsj)).astype(np.int32),
+            "bh": np.stack([band(u / u.sum(), nsi * tile, noi * tile) for _ in range(B)]),
+            "bw": np.stack([band(v / v.sum(), nsj * tile, noj * tile) for _ in range(B)]),
+            "src_alpha": rng.random(B) < 0.5,
+            "out_idx": out_idx,
+        })
+    # each pool row written once per level, as lowering numbers them
+    rows_of = np.split(rng.permutation(64), np.cumsum([len(ck["out_idx"]) for ck in chunks]))
+    for ck, pool_rows in zip(chunks, rows_of):
+        ck["pool_idx"] = [int(x) for x in pool_rows]
+    return chunks
+
+
+def _steps(lo, hi, step):
+    """The columns of a band's walk: its step-aligned steps, whole."""
+    if lo >= hi:
+        return np.zeros(0, np.int64)
+    return np.arange(lo // step * step, -(-hi // step) * step)
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-adds a * b + c, emulated in float64."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _walk(bh_rows, x, bw_rows, hs, ws):
+    """The kernel's sums for one block, one fused multiply-add at a time:
+    Z[r, w] over h in hs, then out[r, q] over w in ws."""
+    out = np.zeros((bh_rows.shape[0], bw_rows.shape[0]), np.float32)
+    if not len(hs) or not len(ws):
+        return out
+    z = np.zeros((bh_rows.shape[0], len(ws)), np.float32)
+    for h in hs:
+        z = _fma(bh_rows[:, h, None], x[h, ws][None], z)
+    for k, w in enumerate(ws):
+        out = _fma(z[:, k, None], bw_rows[None, :, w], out)
+    return out
+
+
+def _assert_bands(ck, tile, rng, walks: int):
+    """The band tables of a chunk cover every nonzero of its operators, an
+    empty band means an all-zero slice, and the band walk of `walks` kernel
+    blocks (16 out rows of one out tile) equals the dense walk bit for
+    bit."""
+    rows = filter_batch.BLUR_ROWS
+    hband, wband = filter_batch.band_tables(ck, tile)
+    B, nsi, nsj, noi, noj = (ck[k] for k in ("B", "NSi", "NSj", "NOi", "NOj"))
+    bh = np.asarray(ck["bh"], np.float32)
+    bw = np.asarray(ck["bw"], np.float32)
+    assert hband.shape == (B * noi * tile // rows, 2) and wband.shape == (B * noj, 2)
+    for m, bands, n in ((bh, hband, rows), (bw, wband, tile)):
+        for (lo, hi), block in zip(bands, m.reshape(len(bands), n, -1), strict=True):
+            nz = np.flatnonzero(block.any(axis=0))
+            if lo >= hi:
+                assert nz.size == 0 and lo == hi == 0
+            else:
+                assert nz[0] == lo and nz[-1] == hi - 1
+    step = filter_batch.BLUR_STEP[tile]
+    H, W = nsi * tile, nsj * tile
+    blocks = [(b, r, oj) for b in range(B) for r in range(noi * tile // rows)
+              for oj in range(noj)]
+    for k in rng.permutation(len(blocks))[:walks]:
+        b, r, oj = blocks[k]
+        x = rng.random((H, W), dtype=np.float32)
+        bh_rows = bh[b, r * rows:(r + 1) * rows]
+        bw_rows = bw[b, oj * tile:(oj + 1) * tile]
+        dense = _walk(bh_rows, x, bw_rows, np.arange(H), np.arange(W))
+        banded = _walk(bh_rows, x, bw_rows, _steps(*hband[b * noi * tile // rows + r], step),
+                       _steps(*wband[b * noj + oj], step))
+        assert np.array_equal(dense.view(np.uint32), banded.view(np.uint32))
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("name", CHUNK_DOCS)
+def test_blur_band_tables_on_document_chunks(name, tile):
+    rng = np.random.default_rng(tile)
+    for ck in _doc_chunks(name, tile):
+        _assert_bands(ck, tile, rng, walks=3)
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_blur_band_tables_on_random_chunks(tile):
+    rng = np.random.default_rng(40 + tile)
+    chunks = _random_chunks(rng, tile, 8)
+    assert any(lo >= hi for ck in chunks for lo, hi in filter_batch.band_tables(ck, tile)[0])
+    for ck in chunks:
+        _assert_bands(ck, tile, rng, walks=4)
+
+
+def _assert_packed(level, chunks, tile):
+    """What the kernel reads through the packed level's table (its chunks
+    in level.order): for every out tile, found by binary search over the
+    chunks' first out tiles, the
+    lut row, BH and BW rows, SourceAlpha flag and bands at the table's
+    offsets are its chunk's own; out_idx / pool_idx are the chunks',
+    concatenated with each chunk's first out tile added."""
+    from svgrasterize_tpu_torch.ops.filter_batch import (
+        LT_B, LT_BH, LT_BW, LT_HB, LT_LINEAR, LT_LUT, LT_NOI, LT_NOJ, LT_NSI, LT_NSJ,
+        LT_OUT, LT_PART, LT_WB)
+
+    assert sorted(level.order) == list(range(len(chunks)))
+    chunks = [chunks[i] for i in level.order]
+    table = level.table.numpy()
+    lut, bh, bw = level.lut.numpy(), level.bh.numpy(), level.bw.numpy()
+    assert level.tiles == sum(ck["B"] * ck["NOi"] * ck["NOj"] for ck in chunks)
+    for tile_i in range(level.tiles):
+        c = int(np.searchsorted(table[:, LT_OUT], tile_i, side="right")) - 1
+        row, ck = table[c], chunks[c]
+        nsi, nsj, noi, noj = (int(v) for v in row[[LT_NSI, LT_NSJ, LT_NOI, LT_NOJ]])
+        assert (row[LT_B], nsi, nsj, noi, noj) == tuple(
+            ck[k] for k in ("B", "NSi", "NSj", "NOi", "NOj"))
+        assert row[LT_LINEAR] == int(ck["chain_linear"])
+        local = tile_i - row[LT_OUT]
+        b, oi, oj = local // (noi * noj), local % (noi * noj) // noj, local % noj
+        H, W = nsi * tile, nsj * tile
+        at = row[LT_LUT] + b * nsi * nsj
+        assert np.array_equal(lut[at:at + nsi * nsj], np.asarray(ck["lut"])[b])
+        at = row[LT_BH] + (b * noi * tile + oi * tile) * H
+        assert np.array_equal(bh[at:at + tile * H].reshape(tile, H),
+                              np.asarray(ck["bh"])[b, oi * tile:(oi + 1) * tile])
+        at = row[LT_BW] + (b * noj * tile + oj * tile) * W
+        assert np.array_equal(bw[at:at + tile * W].reshape(tile, W),
+                              np.asarray(ck["bw"])[b, oj * tile:(oj + 1) * tile])
+        assert level.src_alpha[row[LT_PART] + b] == int(np.asarray(ck["src_alpha"])[b])
+        hband, wband = filter_batch.band_tables(ck, tile)
+        split = tile // filter_batch.BLUR_ROWS
+        at = (b * noi + oi) * split
+        assert (level.hband[row[LT_HB] + at:row[LT_HB] + at + split].tolist()
+                == hband[at:at + split].tolist())
+        assert level.wband[row[LT_WB] + b * noj + oj].tolist() == wband[b * noj + oj].tolist()
+    firsts = table[:, LT_OUT]
+    assert level.out_idx.tolist() == [int(i) + int(f) for ck, f in zip(chunks, firsts)
+                                      for i in ck["out_idx"]]
+    assert level.pool_idx.tolist() == [int(p) for ck in chunks for p in ck["pool_idx"]]
+
+
+def _pools(canvas, level, t, linear_rgb, pool_rows):
+    """The pool rows of the per-chunk loop and of the packed level (one
+    plain apply_level, one pool write)."""
+    loop = torch.zeros((pool_rows, t, t, 4))
+    for ck in level.chunks:
+        batch_exec._pool_rows(loop, filter_batch.apply_chunk(canvas, ck, t, linear_rgb),
+                              ck["out_idx"], ck["pool_idx"])
+    packed = torch.zeros((pool_rows, t, t, 4))
+    batch_exec._pool_rows(packed, filter_batch.apply_level(canvas, level, t, linear_rgb),
+                          level.out_idx, level.pool_idx)
+    return loop, packed
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_level_packing_of_random_chunks(tile):
+    rng = np.random.default_rng(60 + tile)
+    chunks = _random_chunks(rng, tile, 8)
+    level = filter_batch.pack_level(chunks, tile, "cpu")
+    _assert_packed(level, chunks, tile)
+    canvas = torch.from_numpy(rng.random((8, tile, tile, 4), dtype=np.float32))
+    canvas[..., :3] *= canvas[..., 3:]
+    for linear_rgb in (False, True):
+        loop, packed = _pools(canvas, level, tile, linear_rgb, 64)
+        assert torch.equal(loop, packed) and float(packed.abs().max()) > 0.0
+    # the wrapper takes the plain level for CPU tensors: no launch
+    fused_exec.reset_launch_counts()
+    assert torch.equal(fused_exec.blur_chunk(canvas, level, tile, False),
+                       filter_batch.apply_level(canvas, level, tile, False))
+    assert fused_exec.blur_chunk.launches == 0
+    assert filter_batch.pack_level([], tile, "cpu") is None
+
+
+@pytest.mark.parametrize("name", CHUNK_DOCS)
+def test_level_packing_of_document_levels(name):
+    """Each level of the uploaded program packs its chunks as lowering
+    built them, and writes the per-chunk loop's pool rows."""
+    lowered = torch_lower(DOCS[name], 32)
+    prog = trp.upload_program(lowered, "cpu")
+    rng = np.random.default_rng(7)
+    packed_levels = 0
+    for g, level in zip(lowered.groups, prog.levels):
+        chunks = g["_blur_batch"][0]
+        assert (level.blur is None) == (not chunks)
+        if level.blur is None:
+            continue
+        packed_levels += 1
+        _assert_packed(level.blur, chunks, 32)
+        canvas = torch.from_numpy(rng.random((g["rows"], 32, 32, 4), dtype=np.float32))
+        canvas[..., :3] *= canvas[..., 3:]
+        loop, packed = _pools(canvas, level.blur, 32, False, prog.pool_rows)
+        assert torch.equal(loop, packed)
+    assert packed_levels
