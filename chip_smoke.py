@@ -24,7 +24,16 @@ opacity groups serves at 1024 x 1024; the CLI renders, and a compiled scene
 serves, a 1488 x 1488 document of pattern fills and raster images; the CLI
 renders a 1488 x 1488 document the batched path cannot express through the
 interpreter (Scene.render, whose groups batch their lowerable runs), and
-one group of it alone with -id.  Launch counts are set to 0 just before
+one group of it alone with -id.  Then the serving and scale-out slice:
+the four serving documents by CUDA-graph replay
+(CompiledScene.render_tiles_many: the captured frame launches what an
+eager frame launches and the replayed frame equals it bit for bit), replay
+ms/frame of the flat and pass documents at T = 16, 32 and 64, both
+documents over a mesh of four shards on the card (within 1e-5 of one
+device), a fill batch through the winding kernel, sprite atlases of 13
+documents x 4 (rendered once each) and of 52 distinct ones (within 1e-5 of
+the combined plan) and a sharded one, and the multi-process dry run as one
+NCCL rank in a process of its own.  Launch counts are set to 0 just before
 each path and read just after it.  Each phase prints one line; any failure
 exits non-zero.  The line before the last is a JSON object with per-kernel
 launches (summed over the paths), errors, times and least-time bounds; the
@@ -62,6 +71,11 @@ STRESS_DRAWS = 2000
 STRESS_SIZE = 1024
 INTERP_DRAWS = 600
 PATTERN_GROUP = "pattern_group"  # the id the [interp_id] render draws
+SERVE_MANY = 50  # frames per timed render_tiles_many call
+SHARDS = 4  # shards of the single-process mesh, all on the one card
+FILL_PATHS, FILL_SEGS, FILL_SIZE = 64, 64, 256  # the fill batch: paths x edges at size^2
+ATLAS_DOCS, ATLAS_COPIES, ATLAS_CELL = 13, 4, 192  # 52 cells of 192, 7 x 8
+ATLAS_TOL = 1e-5  # the same items at other placements: gradients' float rounding
 
 # Least-time bounds (NVIDIA's H100 SXM data sheet, full 700 W power limit):
 # device memory rate and the f32 rate outside the tensor cores.
@@ -507,6 +521,57 @@ def pattern_doc(n_draws: int, size: int, seed: int) -> str:
     """interp_doc restricted to its pattern fills and images: the batched
     path lowers it whole."""
     return interp_doc(n_draws, size, seed, kinds=("pattern", "image"))
+
+
+def icon_doc(index: int) -> str:
+    """A 48 x 48 icon-like document made from `index`: a gradient plate, 8-13
+    solid and gradient shapes (some translucent), an opacity group and a
+    masked group (two isolation passes).  Everything stays inside the
+    document, and there is no filter (a blur's placement truncates by its
+    layer origin), so every copy of it in an atlas renders alike."""
+    rng = np.random.default_rng(1000 + index)
+
+    def color():
+        return "#%02x%02x%02x" % tuple(int(v) for v in rng.integers(0, 256, 3))
+
+    def shape(attrs):  # inside the 48 x 48 cell: content must not reach a neighbour
+        x, y = rng.uniform(12, 26, 2)
+        e = rng.uniform(6, 20)
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            return (f"<rect x='{x:.2f}' y='{y:.2f}' width='{e:.2f}' height='{e * 0.7:.2f}'"
+                    f" rx='{e / 6:.2f}'{attrs}/>")
+        if kind == 1:
+            return f"<circle cx='{x:.2f}' cy='{y:.2f}' r='{e / 2:.2f}'{attrs}/>"
+        p = rng.uniform(2, 46, (4, 2))
+        return (f"<path d='M{x:.2f} {y:.2f} Q{p[0, 0]:.2f} {p[0, 1]:.2f} {p[1, 0]:.2f}"
+                f" {p[1, 1]:.2f} Q{p[2, 0]:.2f} {p[2, 1]:.2f} {p[3, 0]:.2f} {p[3, 1]:.2f} Z'"
+                f"{attrs}/>")
+
+    def paint():
+        r = rng.random()
+        if r < 0.25:
+            return " fill='url(#lg)'"
+        if r < 0.4:
+            return " fill='url(#rg)'"
+        return f" fill='{color()}'" + (f" fill-opacity='{rng.uniform(0.4, 1):.2f}'"
+                                        if rng.random() < 0.3 else "")
+
+    body = [shape(paint()) for _ in range(int(rng.integers(8, 14)))]
+    body.insert(int(rng.integers(0, len(body))),
+                f"<g opacity='{rng.uniform(0.3, 0.8):.2f}'>{shape(paint())}{shape(paint())}</g>")
+    body.insert(int(rng.integers(0, len(body))),
+                f"<g mask='url(#m)'>{shape(paint())}{shape(paint())}</g>")
+    return (
+        "<svg xmlns='http://www.w3.org/2000/svg' width='48' height='48'><defs>"
+        f"<linearGradient id='lg' x2='{rng.uniform(0.3, 1):.2f}' y2='{rng.uniform(0, 1):.2f}'>"
+        f"<stop offset='0' stop-color='{color()}'/><stop offset='1' stop-color='{color()}'/>"
+        f"</linearGradient><radialGradient id='rg'><stop offset='0' stop-color='{color()}'/>"
+        f"<stop offset='1' stop-color='{color()}' stop-opacity='0.3'/></radialGradient>"
+        "<mask id='m'><rect width='48' height='48' fill='url(#lg)'/></mask></defs>"
+        f"<rect x='1' y='1' width='46' height='46' rx='8' fill='url(#lg)'/>"
+        + "".join(body) + "</svg>"
+    )
 
 
 # ----------------------------------------------------------------------------
@@ -981,7 +1046,7 @@ def _pass_breakdown(torch, prog, pool, viewport) -> str:
     from svgrasterize_tpu_torch.ops import fused_exec
     from svgrasterize_tpu_torch.render_plan import _apply_part_filter, run_program
 
-    t, grid_w, origin = prog.tile, prog.grid[1], viewport[:2]
+    t, origin = prog.tile, viewport[:2]
     levels = prog.levels
 
     def scenes():
@@ -992,8 +1057,8 @@ def _pass_breakdown(torch, prog, pool, viewport) -> str:
 
     def filters():
         for lv, canvas in zip(levels, canvases):
-            for part, _src, _dst in lv.filters:
-                _apply_part_filter(canvas, part, grid_w, origin, False, t)
+            for part in lv.filters:
+                _apply_part_filter(canvas, part, origin, False, t)
 
     def blurs():
         for lv, canvas in zip(levels, canvases):
@@ -1015,6 +1080,46 @@ def _pass_breakdown(torch, prog, pool, viewport) -> str:
     }
     ms = {name: _time_ms(torch, fn, 10) for name, fn in stages.items()}
     return "ms/frame " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+
+
+def _bits(t):
+    """t's float32 values as int32 bit patterns (tells -0.0 from +0.0)."""
+    import torch
+
+    return t.contiguous().view(torch.int32)
+
+
+def _serve_many(torch, cs, label: str, path_launches: dict, eager_reps: int) -> dict:
+    """Replay against eager on one compiled scene (a main path: counts set to
+    0 before its first render_tiles_many, which captures, and read after):
+    the captured frame launches what one eager frame launches, the replayed
+    frame equals render_tiles() bit for bit, and ms per frame of both (CUDA
+    events around render_tiles_many(SERVE_MANY), one clone per call)."""
+    from svgrasterize_tpu_torch.ops import fused_exec
+
+    fused_exec.reset_launch_counts()
+    eager = cs.render_tiles()
+    torch.cuda.synchronize()
+    eager_counts = _launches()
+    fused_exec.reset_launch_counts()
+    many = cs.render_tiles_many(SERVE_MANY)  # eager warm-up, capture, replays
+    torch.cuda.synchronize()
+    path_launches[label] = _launches()
+    if cs.frame_launches != eager_counts:
+        raise RuntimeError(f"{label}: the captured frame launched {cs.frame_launches},"
+                           f" an eager frame {eager_counts}")
+    if not torch.equal(_bits(many), _bits(eager)):
+        raise RuntimeError(f"{label}: the replayed frame differs from render_tiles()")
+    replay_ms = _time_ms(torch, lambda: cs.render_tiles_many(SERVE_MANY), 1) / SERVE_MANY
+    eager_ms = _time_ms(torch, cs.render_tiles, eager_reps)
+    return dict(replay_ms=replay_ms, eager_ms=eager_ms, launches=cs.frame_launches)
+
+
+def _sharded_launches(cs) -> int:
+    """Scene launches one frame of a sharded compiled scene makes: one per
+    shard with items, over its levels' programs and its main stream."""
+    plans = [lv.plan for lv in cs.program.levels] + [cs.plan]
+    return sum(s.plan is not None for p in plans for s in p.shards)
 
 
 # ----------------------------------------------------------------------------
@@ -1264,6 +1369,7 @@ def main() -> int:
             f" kernel {spre_ms:.4f} ms per call ({spre_dev_ms:.4f} ms with the host"
             f" ahead), bound {sb['bound_ms']:.6f} ms ({sb['bound_by']})"
         ))
+        serve_cs, flat_scene, flat_vp = cs, scene, vp
         mpx = w * h / 1e6
         _say("serve", (
             f"{int(w)}x{int(h)} T=64 {cs.plan.tile_id.shape[0]} items, compiled in"
@@ -1474,6 +1580,7 @@ def main() -> int:
         stress_err = float((last - plain_last).abs().max())
         if not stress_err <= SCENE_TOL:
             raise RuntimeError(f"stress serving disagrees with plain: {stress_err}")
+        stress_cs = cs
         mpx = w * h / 1e6
         _say("serve_passes", (
             f"stress_doc({STRESS_DRAWS}, {STRESS_SIZE}) T=32: {len(cs.program.levels)}"
@@ -1638,6 +1745,7 @@ def main() -> int:
         path_launches["serve_patterns"] = _launches()
         if not torch.equal(first, last) or path_launches["serve_patterns"]["scene_tiles"] == 0:
             raise RuntimeError("pattern serving frames differ or missed the scene kernel")
+        pattern_cs = cs
         plain_frame_ms = _time_ms(torch, lambda: cs.render_tiles(plain=True), 2)
         serve_err = float((last - cs.render_tiles(plain=True)).abs().max())
         if not serve_err <= SCENE_TOL:
@@ -1717,6 +1825,172 @@ def main() -> int:
             f"-id {PATTERN_GROUP}: {img.shape[1]}x{img.shape[0]} PNG in {id_s:.3f}s; max diff"
             f" vs cpu {int(diff.max())}/255; launches {path_launches['interp_id']}"
         ))
+
+        # 17. serving by CUDA-graph replay (main paths): the four serving
+        # documents, replay bit for bit against render_tiles
+        from svgrasterize_tpu_torch.render_plan import CompiledScene
+
+        pass_cs = CompiledScene(low_p, vp_p, False, device=dev)
+        serving = (("flat", serve_cs, flat_vp, 64), ("pass", pass_cs, vp_p, 32),
+                   ("stress", stress_cs, (0, 0, STRESS_SIZE, STRESS_SIZE), 32),
+                   ("pattern", pattern_cs, vp_t, 32))
+        captured = set()
+        for label, cs_, vp_, t in serving:
+            r = _serve_many(torch, cs_, f"serve_many_{label}", path_launches, 5)
+            captured |= {k for k, v in r["launches"].items() if v}
+            mpx = vp_[2] * vp_[3] / 1e6
+            _say("serve_many", (
+                f"{label} {vp_[3]}x{vp_[2]} T={t}: replay {r['replay_ms']:.4f} ms/frame"
+                f" ({mpx / r['replay_ms'] * 1e3:.1f} Mpx/s), eager {r['eager_ms']:.4f}"
+                f" ms/frame ({r['eager_ms'] / r['replay_ms']:.2f}x); replay == render_tiles"
+                f" bit for bit; captured frame launches {r['launches']}"
+            ))
+        missed = {"prepass_winding", "scene_tiles", "blur_chunk", "pool_rows"} - captured
+        if missed:
+            raise RuntimeError(f"no captured frame launched {sorted(missed)}")
+
+        # 18. replay ms/frame by tile size (measured only)
+        scene_p, _ids, _size = scene_from_filepath(pdoc, None, None, fonts)
+        for label, scene_, vp_, done in (("flat", flat_scene, flat_vp, {64: serve_cs}),
+                                         ("pass", scene_p, vp_p, {32: pass_cs})):
+            row = []
+            for t in (16, 32, 64):
+                t0 = time.monotonic()
+                cs_ = done.get(t) or compile_scene(scene_, swap, vp_, tile=t, device=dev)
+                compile_s = time.monotonic() - t0
+                r = _serve_many(torch, cs_, f"serve_tiles_{label}_{t}", path_launches, 2)
+                row.append(f"T={t} {r['replay_ms']:.4f} (eager {r['eager_ms']:.4f},"
+                           f" compiled in {compile_s:.2f}s)")
+                del cs_
+            torch.cuda.empty_cache()
+            _say("serve_tiles", f"{label} {vp_[3]}x{vp_[2]} replay ms/frame: {'; '.join(row)}")
+
+        # 19. a single-process mesh of SHARDS shards on the card (main paths)
+        from svgrasterize_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh([dev] * SHARDS)
+        for label, scene_, vp_, t, ref_cs in (("flat", flat_scene, flat_vp, 64, serve_cs),
+                                              ("pass", scene_p, vp_p, 32, pass_cs)):
+            t0 = time.monotonic()
+            sh = compile_scene(scene_, swap, vp_, False, mesh, tile=t, device=dev)
+            compile_s = time.monotonic() - t0
+            fused_exec.reset_launch_counts()
+            tiles = sh.render_tiles()
+            torch.cuda.synchronize()
+            path_launches[f"sharded_{label}"] = counts = _launches()
+            expected = _sharded_launches(sh)
+            if counts["scene_tiles"] != expected:
+                raise RuntimeError(f"sharded {label}: {counts['scene_tiles']} scene launches,"
+                                   f" {expected} shard plans")
+            err = float((tiles - ref_cs.render_tiles()).abs().max())
+            if not bool(torch.isfinite(tiles).all()) or not err <= BLUR_TOL:
+                raise RuntimeError(f"sharded {label} frame differs from one device's: {err}")
+            frame_ms = _time_ms(torch, sh.render_tiles, 3)
+            n_plans = len(sh.program.levels) + 1
+            _say("sharded", (
+                f"{label} {vp_[3]}x{vp_[2]} T={t} over {SHARDS} shards: max abs diff vs one"
+                f" device {err:.3g}; main stream skew {sh.plan.balance['skew']:.4f} (items"
+                f" {sh.plan.balance['counts'].tolist()}); {counts['scene_tiles']} scene launches"
+                f" for {n_plans} plan(s) ({counts['scene_tiles'] / n_plans:.2f} per plan);"
+                f" {frame_ms:.4f} ms/frame; compiled in {compile_s:.2f}s; launches {counts}"
+            ))
+            del sh, tiles
+        torch.cuda.empty_cache()
+
+        # 20. the fill batch through the winding kernel (a main path)
+        from svgrasterize_tpu_torch.parallel import batch as pbatch
+        from svgrasterize_tpu_torch.utils.stress import edge_batch
+
+        lines, colors = edge_batch(FILL_PATHS, FILL_SEGS, float(FILL_SIZE), seed=0)
+        lines_d, colors_d = torch.from_numpy(lines).to(dev), torch.from_numpy(colors).to(dev)
+        fused_exec.reset_launch_counts()
+        got = pbatch.fill_batch(lines_d, colors_d, FILL_SIZE, FILL_SIZE, device=dev)
+        torch.cuda.synchronize()
+        path_launches["fill_batch"] = _launches()
+        if path_launches["fill_batch"]["winding"] != 1:
+            raise RuntimeError(f"fill_batch launches {path_launches['fill_batch']}")
+
+        def plain_fill():
+            wind = torch.stack([coverage.winding(e, FILL_SIZE, FILL_SIZE) for e in lines_d])
+            return pbatch._fill(wind, colors_d, None)
+
+        ref = plain_fill()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not bool(torch.isfinite(got).all()) or not err <= WINDING_TOL:
+            raise RuntimeError(f"fill_batch disagrees with plain: {err}")
+        ms = _time_ms(torch, lambda: pbatch.fill_batch(lines_d, colors_d, FILL_SIZE, FILL_SIZE,
+                                                       device=dev), 20)
+        plain_ms = _time_ms(torch, plain_fill, 2)
+        mpx = FILL_PATHS * FILL_SIZE * FILL_SIZE / 1e6
+        b = _winding_bound([(e, FILL_SIZE, FILL_SIZE) for e in lines_d])
+        _say("fill_batch", (
+            f"{FILL_PATHS} paths x {FILL_SEGS} edges at {FILL_SIZE}^2: max abs diff vs plain"
+            f" {err:.3g}; {ms:.4f} ms ({mpx / ms * 1e3:.1f} Mpx/s), plain {plain_ms:.4f} ms;"
+            f" winding bound {b['bound_ms']:.4f} ms ({b['bound_by']}); launches"
+            f" {path_launches['fill_batch']}"
+        ))
+
+        # 21. sprite atlases: 13 documents x 4 (dedup) and 52 distinct ones
+        from svgrasterize_tpu_torch.parallel.atlas import atlas_scene, compile_atlas, render_atlas
+
+        def icon_docs(indices):
+            out = []
+            for i in indices:
+                sc, _ids, size = scene_from_str(icon_doc(i))
+                out.append((sc, (float(size[0]), float(size[1]))))
+            return out
+
+        repeated = icon_docs(range(ATLAS_DOCS)) * ATLAS_COPIES
+        distinct = icon_docs(range(ATLAS_DOCS * ATLAS_COPIES))
+        for label, docs, n_unique in (("dedup", repeated, ATLAS_DOCS),
+                                      ("distinct", distinct, len(distinct))):
+            t0 = time.monotonic()
+            srv = compile_atlas(docs, cell=ATLAS_CELL, device=dev)
+            compile_s = time.monotonic() - t0
+            if srv is None or srv.n_unique != n_unique or srv.n_docs != len(docs):
+                raise RuntimeError(f"atlas {label}: {None if srv is None else srv.n_unique}"
+                                   f" unique of {len(docs)}")
+            combined, (aw, ah) = atlas_scene(docs, ATLAS_CELL)
+            plain = compile_scene(combined, swap, (0, 0, ah, aw), tile=32, device=dev)
+            err = float((srv.render_tiles() - plain.render_tiles()).abs().max())
+            if not err <= ATLAS_TOL:
+                raise RuntimeError(f"atlas {label} differs from the combined plan: {err}")
+            fused_exec.reset_launch_counts()
+            many = srv.render_tiles_many(SERVE_MANY)
+            torch.cuda.synchronize()
+            path_launches[f"atlas_{label}"] = _launches()
+            if not torch.equal(_bits(many), _bits(srv.render_tiles())):
+                raise RuntimeError(f"atlas {label}: replay differs from render_tiles()")
+            replay_ms = _time_ms(torch, lambda: srv.render_tiles_many(SERVE_MANY), 1) / SERVE_MANY
+            eager_ms = _time_ms(torch, srv.render_tiles, 5)
+            mpx = aw * ah / 1e6
+            _say("atlas", (
+                f"{label}: {len(docs)} documents ({srv.n_unique} rendered) in cells of"
+                f" {ATLAS_CELL}, {aw}x{ah}; max abs diff vs the combined plan {err:.3g};"
+                f" replay {replay_ms:.4f} ms/frame ({mpx / replay_ms * 1e3:.1f} Mpx/s), eager"
+                f" {eager_ms:.4f} ms/frame ({mpx / eager_ms * 1e3:.1f} Mpx/s); compiled in"
+                f" {compile_s:.2f}s; launches {path_launches[f'atlas_{label}']}"
+            ))
+            del srv, plain, many
+        torch.cuda.empty_cache()
+        single = render_atlas(repeated, cell=ATLAS_CELL, device=dev)
+        fused_exec.reset_launch_counts()
+        sharded = render_atlas(repeated, cell=ATLAS_CELL, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        path_launches["atlas_sharded"] = _launches()
+        err = float((sharded.image - single.image).abs().max())
+        if not err <= ATLAS_TOL:
+            raise RuntimeError(f"sharded render_atlas differs from one device's: {err}")
+        _say("atlas", f"render_atlas over {SHARDS} shards vs one device: max abs diff {err:.3g};"
+                      f" launches {path_launches['atlas_sharded']}")
+
+        # 22. the multi-process dry run: one NCCL rank in its own process
+        from svgrasterize_tpu_torch.parallel.distributed import spawn_local
+
+        t0 = time.monotonic()
+        line = spawn_local(1, 1, timeout=300, full=True, device="cuda")
+        _say("distributed", f"{line} ({time.monotonic() - t0:.2f}s)")
 
     launches = {
         k: sum(counts[k] for counts in path_launches.values())

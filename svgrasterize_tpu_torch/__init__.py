@@ -10,7 +10,7 @@ package imports torch and never jax.
 """
 
 from .core.transform import Transform
-from .core.layer import Layer
+from .core.layer import Layer, canvas_create
 from .core import color, png
 from .geom.path import Path, FILL_NONZERO, FILL_EVENODD
 from .geom.hull import ConvexHull
@@ -21,3 +21,5 @@ from .frontend.svg import scene_from_filepath, scene_from_str, scene_from_xml
 from .render_plan import CompiledScene, compile_scene, render_fast
 from .frontend.parsers import parse_color, parse_transform
 from .text.fonts import DEFAULT_FONTS, Font, FontsDB, Glyph
+
+__version__ = "0.1.0"

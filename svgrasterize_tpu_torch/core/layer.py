@@ -107,41 +107,41 @@ class Layer:
     def color_matrix(self, matrix, linear_rgb: bool = True) -> "Layer":
         """Apply a 4x5 affine color matrix (feColorMatrix semantics).
 
+        matrix: the (4, 5) array, or its (4, 4) and (4,) parts as f32
+        tensors on the layer's device (Filter.prepare uploads them once).
         linear_rgb selects the operating space (the filter chain's
         color-interpolation-filters)."""
-        matrix = np.asarray(matrix)
-        if matrix.shape != (4, 5):
-            raise ValueError("expected 4x5 color matrix")
         layer = self.convert(pre_alpha=False, linear_rgb=linear_rgb)
-        dev = layer.image.device
-        m = torch.as_tensor(matrix[:, :4].astype(np.float32), device=dev)
-        b = torch.as_tensor(matrix[:, 4].astype(np.float32), device=dev)
+        if isinstance(matrix, tuple):
+            m, b = matrix
+        else:
+            matrix = np.asarray(matrix)
+            if matrix.shape != (4, 5):
+                raise ValueError("expected 4x5 color matrix")
+            dev = layer.image.device
+            m = torch.as_tensor(matrix[:, :4].astype(np.float32), device=dev)
+            b = torch.as_tensor(matrix[:, 4].astype(np.float32), device=dev)
         image = torch.clamp(layer.image @ m.T + b, 0, 1)
         return Layer(image, layer.offset, False, linear_rgb)
 
     def convolve(self, kernel, linear_rgb: bool = True) -> "Layer":
         """Full 2D convolution of every channel with `kernel` (feGaussianBlur).
 
-        Rank-1 kernels (axis-aligned blurs) run as two band matmuls —
-        kh + kw taps per pixel instead of kh * kw.  linear_rgb selects the
-        operating space (color-interpolation-filters)."""
+        kernel: a (kh, kw) array, or its blur.BlurTaps on the layer's
+        device (Filter.prepare uploads them once).  Rank-1 kernels
+        (axis-aligned blurs) run as two band matmuls — kh + kw taps per
+        pixel instead of kh * kw.  linear_rgb selects the operating space
+        (color-interpolation-filters)."""
         from ..ops import blur
 
         layer = self.convert(pre_alpha=False, linear_rgb=linear_rgb)
-        dev = layer.image.device
+        if not isinstance(kernel, blur.BlurTaps):
+            kernel = blur.upload_kernel(np.asarray(kernel), layer.image.device)
         kh, kw = kernel.shape
-        uv = blur.separate_kernel(np.asarray(kernel)) if min(kh, kw) > 1 else None
-        if uv is not None:
-            image = blur.convolve_separable(
-                layer.image,
-                torch.as_tensor(uv[0].astype(np.float32), device=dev),
-                torch.as_tensor(uv[1].astype(np.float32), device=dev),
-            )
+        if kernel.full is None:
+            image = blur.convolve_separable(layer.image, kernel.u, kernel.v)
         else:
-            image = blur.convolve_full(
-                layer.image,
-                torch.as_tensor(np.asarray(kernel, np.float32), device=dev),
-            )
+            image = blur.convolve_full(layer.image, kernel.full)
         # the reference truncates x - k/2 toward zero, which shifts the blur
         # by one pixel whenever x > k/2; reproduced bit-for-bit (callers feed
         # bbox-tight layers so the same x reaches this formula)

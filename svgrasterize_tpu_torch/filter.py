@@ -219,32 +219,117 @@ class Filter(NamedTuple):
 
 
     # interpreter ------------------------------------------------------------
-    def __call__(self, transform: Transform, source: Layer) -> Layer:
+    def prepare(self, transform: Transform, device) -> "FilterConsts":
+        """The chain's device constants for `transform` on `device` (blur
+        taps, color matrices, flood colors, noise tables, convolution
+        kernels, feImage results).  A serving program prepares each chain
+        once at upload, so its frames copy nothing from the host."""
+        dev = torch.device(device)
+        return FilterConsts(
+            _upload([0.0, 0.0, 0.0, 1.0], dev),
+            [_prepare_primitive(kind, attrs, transform, self.linear, dev)
+             for kind, attrs, _inputs in self.filters],
+        )
+
+    def __call__(self, transform: Transform, source: Layer,
+                 consts: "FilterConsts | None" = None) -> Layer:
+        """Run the chain on `source`; consts: prepare(transform, device)
+        made beforehand (made here when None)."""
+        if consts is None:
+            consts = self.prepare(transform, source.image.device)
         linear = self.linear
-        amask = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=source.image.dtype,
-                             device=source.image.device)
         alpha = Layer(
-            source.image[..., -1:] * amask, source.offset, pre_alpha=True,
+            source.image[..., -1:] * consts.amask, source.offset, pre_alpha=True,
             linear_rgb=linear,
         )
         stack = [alpha, source.convert(pre_alpha=False, linear_rgb=linear)]
         regions = (*self.regions, *([None] * (len(self.filters) - len(self.regions))))
-        for (kind, attrs, inputs), region in zip(self.filters, regions):
+        for (kind, attrs, inputs), region, const in zip(self.filters, regions,
+                                                        consts.primitives):
             args = [stack[i] for i in inputs]
-            out = _apply(kind, attrs, args, transform, linear)
+            out = _apply(kind, attrs, args, transform, linear, const)
             if region is not None:
                 out = _crop_to_region(out, region, transform)
             stack.append(out)
         return stack[-1]
 
 
-def _const(values, like: torch.Tensor) -> torch.Tensor:
-    """Host constants as an f32 tensor on `like`'s device."""
-    return torch.as_tensor(np.asarray(values, np.float32), device=like.device)
+class FilterConsts(NamedTuple):
+    """A filter chain's device constants (Filter.prepare)."""
+
+    amask: torch.Tensor  # (4,) f32: the SourceAlpha channel mask
+    primitives: list  # per primitive: what _prepare_primitive made, or None
+
+
+def _upload(values, device) -> torch.Tensor:
+    """Host constants as an f32 tensor on `device`."""
+    return torch.as_tensor(np.asarray(values, np.float32), device=device)
+
+
+def _same_kernel(kernel: np.ndarray, device) -> torch.Tensor:
+    """A 2D kernel flipped for _convolve_same (a true convolution is a
+    cross-correlation with the flipped kernel), f32 on `device`."""
+    return _upload(np.ascontiguousarray(kernel[::-1, ::-1]), device)
+
+
+def _prepare_primitive(kind: int, attrs: tuple, transform: Transform, linear: bool,
+                       device):
+    """The device constants one primitive reads (see _apply), or None."""
+    if kind == FE_GAUSSIAN_BLUR:
+        std_x, std_y = attrs
+        kernel = blur_ops.gaussian_kernel(transform, (std_x, std_x if std_y is None else std_y))
+        return None if kernel is None else blur_ops.upload_kernel(kernel, device)
+    if kind == FE_COLOR_MATRIX:
+        (matrix,) = attrs
+        if not isinstance(matrix, np.ndarray) or matrix.shape != (4, 5):
+            return None
+        return _upload(matrix[:, :4], device), _upload(matrix[:, 4], device)
+    if kind == FE_FLOOD:
+        return _upload(attrs[0], device)
+    if kind == FE_TURBULENCE:
+        from .ops.turbulence import lattice_tables
+
+        selector, gradient = lattice_tables(attrs[3])
+        return torch.as_tensor(selector, device=device).long(), _upload(gradient, device)
+    if kind == FE_DROP_SHADOW:
+        _dx, _dy, std, color = attrs
+        kernel = blur_ops.gaussian_kernel(transform, (std, std))
+        taps = None if kernel is None else blur_ops.upload_kernel(kernel, device)
+        return taps, _upload(color[:3], device)
+    if kind == FE_CONVOLVE_MATRIX:
+        kernel, divisor, _bias, _preserve_alpha = attrs
+        return _same_kernel(np.asarray(kernel, np.float64) / divisor, device)
+    if kind in (FE_DIFFUSE_LIGHTING, FE_SPECULAR_LIGHTING):
+        return (_same_kernel(_SOBEL / 4.0, device), _same_kernel(_SOBEL.T / 4.0, device),
+                _upload(attrs[3], device))
+    if kind == FE_IMAGE:
+        scene, region = attrs
+        if isinstance(scene, tuple) and scene[0] == "raster":
+            # external raster resource (PNG): stretched onto its subregion
+            # (or its intrinsic pixel size in user units), axis-aligned —
+            # rotation of the placement box is not applied
+            from .paint import resize_bilinear
+
+            raster = np.asarray(scene[1], dtype=np.float64) / 255.0
+            if region is None:
+                region = (0.0, 0.0, float(raster.shape[1]), float(raster.shape[0]))
+            offset, (h, w) = _output_region(region, None, transform)
+            image = resize_bilinear(
+                torch.as_tensor(raster, device=device).to(torch.float32), h, w)
+            layer = Layer(image, offset, pre_alpha=False, linear_rgb=False)
+            return layer.convert(pre_alpha=False, linear_rgb=linear)
+        tr = transform
+        if region is not None:
+            tr = transform @ Transform().translate(region[0], region[1])
+        result = scene.render(tr, linear_rgb=linear, device=device)
+        return None if result is None else result[0].convert(pre_alpha=False,
+                                                              linear_rgb=linear)
+    return None
 
 
 def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
-           linear: bool = True) -> Layer:
+           linear: bool, const) -> Layer:
+    """One primitive's result; const: its _prepare_primitive constants."""
     if kind == FE_OFFSET:
         dx, dy = attrs
         (layer,) = inputs
@@ -273,21 +358,18 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
         return Layer.compose([in2, in1], mode, linear_rgb=linear)
 
     if kind == FE_GAUSSIAN_BLUR:
-        std_x, std_y = attrs
-        std_y = std_x if std_y is None else std_y
         (layer,) = inputs
-        kernel = blur_ops.gaussian_kernel(transform, (std_x, std_y))
-        if kernel is None:
+        if const is None:  # sub-pixel blur: a no-op
             return layer
-        return layer.convolve(kernel, linear)
+        return layer.convolve(const, linear)
 
     if kind == FE_COLOR_MATRIX:
         (matrix,) = attrs
         (layer,) = inputs
-        if not isinstance(matrix, np.ndarray) or matrix.shape != (4, 5):
+        if const is None:
             warnings.warn(f"invalid color matrix: {matrix}")
             return layer
-        return layer.color_matrix(matrix, linear)
+        return layer.color_matrix(const, linear)
 
     if kind == FE_MORPHOLOGY:
         rx, ry, method = attrs
@@ -301,10 +383,10 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
         return layer.morphology(size0, size1, method, linear)
 
     if kind == FE_FLOOD:
-        color, region = attrs
+        _color, region = attrs
         (source,) = inputs
         offset, (h, w) = _output_region(region, source, transform)
-        image = _const(color, source.image).expand(h, w, 4)
+        image = const.expand(h, w, 4)
         return Layer(image, offset, pre_alpha=False, linear_rgb=linear)
 
     if kind == FE_TILE:
@@ -330,12 +412,12 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
         )
 
     if kind == FE_TURBULENCE:
-        from .ops.turbulence import lattice_tables, turbulence_impl
+        from .ops.turbulence import turbulence_impl
 
-        base_fx, base_fy, octaves, seed, fractal, region = attrs
+        base_fx, base_fy, octaves, _seed, fractal, region = attrs
         (source,) = inputs
         offset, (h, w) = _output_region(region, source, transform)
-        selector, gradient = lattice_tables(seed)
+        selector, gradient = const
         # device pixel centers -> user space (the spec evaluates noise in
         # user coordinates; baseFrequency is per user unit)
         inv = transform.invert.m
@@ -352,7 +434,8 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
         return Layer(image, offset, pre_alpha=False, linear_rgb=linear)
 
     if kind == FE_DROP_SHADOW:
-        dx, dy, std, color = attrs
+        dx, dy, _std, color = attrs
+        taps, rgb = const
         (layer,) = inputs
         alpha = layer.convert(pre_alpha=False, linear_rgb=linear).image[..., -1:]
         zeros_rgb = alpha.new_zeros((*alpha.shape[:2], 3))
@@ -360,11 +443,10 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
             torch.cat([zeros_rgb, alpha], dim=-1),
             layer.offset, pre_alpha=False, linear_rgb=linear,
         )
-        kernel = blur_ops.gaussian_kernel(transform, (std, std))
-        if kernel is not None:
-            shadow = shadow.convolve(kernel, linear)
-        shadow = _apply(FE_OFFSET, (dx, dy), [shadow], transform)
-        rgb = _const(color[:3], shadow.image).expand(*shadow.image.shape[:2], 3)
+        if taps is not None:
+            shadow = shadow.convolve(taps, linear)
+        shadow = _apply(FE_OFFSET, (dx, dy), [shadow], transform, linear, None)
+        rgb = rgb.expand(*shadow.image.shape[:2], 3)
         tinted = Layer(
             torch.cat([rgb, shadow.image[..., -1:] * float(color[3])], dim=-1),
             shadow.offset, pre_alpha=False, linear_rgb=linear,
@@ -372,13 +454,13 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
         return Layer.compose([tinted, layer], linear_rgb=linear)
 
     if kind == FE_CONVOLVE_MATRIX:
-        kernel, divisor, bias, preserve_alpha = attrs
+        _kernel, _divisor, bias, preserve_alpha = attrs
         (layer,) = inputs
         # the spec convolves premultiplied pixels (unless preserveAlpha);
         # kernelMatrix is applied rotated 180deg, i.e. a true convolution.
         # Edge mode: zero fill ('none'); 'duplicate'/'wrap' degrade to it.
         pre = layer.convert(pre_alpha=not preserve_alpha, linear_rgb=linear)
-        image = _convolve_same(pre.image, np.asarray(kernel, np.float64) / divisor)
+        image = _convolve_same(pre.image, const)
         image = image + float(bias)
         if preserve_alpha:
             image = torch.cat([image[..., :3], pre.image[..., -1:]], dim=-1)
@@ -419,46 +501,25 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
         return Layer(image, src.offset, pre_alpha=False, linear_rgb=linear)
 
     if kind == FE_IMAGE:
-        scene, region = attrs
         (source,) = inputs
-        dev = source.image.device
-        if isinstance(scene, tuple) and scene[0] == "raster":
-            # external raster resource (PNG): stretched onto its subregion
-            # (or its intrinsic pixel size in user units), axis-aligned —
-            # rotation of the placement box is not applied
-            from .paint import resize_bilinear
-
-            raster = np.asarray(scene[1], dtype=np.float64) / 255.0
-            if region is None:
-                region = (0.0, 0.0, float(raster.shape[1]), float(raster.shape[0]))
-            offset, (h, w) = _output_region(region, source, transform)
-            image = resize_bilinear(
-                torch.as_tensor(raster, device=dev).to(source.image.dtype), h, w
-            )
-            layer = Layer(image, offset, pre_alpha=False, linear_rgb=False)
-            return layer.convert(pre_alpha=False, linear_rgb=linear)
-        tr = transform
-        if region is not None:
-            tr = transform @ Transform().translate(region[0], region[1])
-        result = scene.render(tr, linear_rgb=linear, device=dev)
-        if result is None:
+        if const is None:  # the fragment rendered nothing
             offset, (h, w) = _output_region(None, source, transform)
             return Layer(
                 source.image.new_zeros((h, w, 4)), offset,
                 pre_alpha=True, linear_rgb=linear,
             )
-        layer, _hull = result
-        return layer.convert(pre_alpha=False, linear_rgb=linear)
+        return const
 
     if kind in (FE_DIFFUSE_LIGHTING, FE_SPECULAR_LIGHTING):
-        surface_scale, k, exponent, color, light = attrs
+        surface_scale, k, exponent, _color, light = attrs
+        sobel_r, sobel_c, color = const
         (layer,) = inputs
         a = layer.convert(pre_alpha=False, linear_rgb=linear).image[..., 3]
         # surface normal from the alpha height map (spec 15.14; the Sobel
         # factors are the spec's interior-pixel kernels, computed here in
         # device axes with kernelUnitLength = 1 device pixel)
-        grad_r = _convolve_same(a[..., None], _SOBEL / 4.0)[..., 0]
-        grad_c = _convolve_same(a[..., None], _SOBEL.T / 4.0)[..., 0]
+        grad_r = _convolve_same(a[..., None], sobel_r)[..., 0]
+        grad_c = _convolve_same(a[..., None], sobel_c)[..., 0]
         nr = -surface_scale * grad_r
         nc = -surface_scale * grad_c
         inv_norm = 1.0 / torch.sqrt(nr * nr + nc * nc + 1.0)
@@ -466,7 +527,6 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
 
         l_r, l_c, l_z, atten = _light_vector(light, layer, transform, z_surf)
         n_dot_l = (nr * l_r + nc * l_c + l_z) * inv_norm
-        color = _const(color, a)
         if kind == FE_DIFFUSE_LIGHTING:
             value = k * torch.clamp(n_dot_l, min=0.0) * atten
             rgb = value[..., None] * color
@@ -544,16 +604,15 @@ def _light_vector(light, layer: Layer, transform: Transform, z_surf):
     return l_r, l_c, l_z, atten
 
 
-def _convolve_same(image, kernel: np.ndarray):
-    """SAME-extent true convolution of every channel with a 2D kernel
-    (XLA's SAME padding: the odd pixel of an even kernel's padding goes
-    after).  cuDNN's TF32 is switched off where it runs."""
-    kh, kw = kernel.shape
+def _convolve_same(image, flipped: torch.Tensor):
+    """SAME-extent true convolution of every channel with a 2D kernel,
+    given flipped (_same_kernel) on the image's device (XLA's SAME padding:
+    the odd pixel of an even kernel's padding goes after).  cuDNN's TF32 is
+    switched off where it runs."""
+    kh, kw = flipped.shape
     ch = image.shape[-1]
     x = image.permute(2, 0, 1)[None]
-    k = torch.as_tensor(np.ascontiguousarray(kernel[::-1, ::-1]).astype(np.float32),
-                        device=image.device)
-    k = k[None, None].expand(ch, 1, kh, kw).contiguous()
+    k = flipped[None, None].expand(ch, 1, kh, kw).contiguous()
     x = F.pad(x, ((kw - 1) // 2, kw - 1 - (kw - 1) // 2,
                   (kh - 1) // 2, kh - 1 - (kh - 1) // 2))
     with torch.backends.cudnn.flags(

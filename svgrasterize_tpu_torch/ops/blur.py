@@ -11,6 +11,8 @@ semantics.  A copy of the JAX package's ops/blur.py.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -75,6 +77,27 @@ def separate_kernel(kernel: np.ndarray):
     if not np.allclose(np.outer(u, v) / s, kernel, atol=1e-7):
         return None
     return u / s, v
+
+
+class BlurTaps(NamedTuple):
+    """A blur kernel on the device (upload_kernel)."""
+
+    shape: tuple  # (kh, kw)
+    u: torch.Tensor | None  # (kh,) f32 row factor of a separable kernel
+    v: torch.Tensor | None  # (kw,) f32 column factor
+    full: torch.Tensor | None  # (kh, kw) f32 kernel that does not separate
+
+
+def upload_kernel(kernel: np.ndarray, device) -> BlurTaps:
+    """Upload a kernel as its separable factors (when it is rank 1 and both
+    sides exceed one tap) or whole."""
+    kh, kw = kernel.shape
+    uv = separate_kernel(kernel) if min(kh, kw) > 1 else None
+    if uv is not None:
+        return BlurTaps((kh, kw), torch.as_tensor(uv[0].astype(np.float32), device=device),
+                        torch.as_tensor(uv[1].astype(np.float32), device=device), None)
+    return BlurTaps((kh, kw), None, None,
+                    torch.as_tensor(np.asarray(kernel, np.float32), device=device))
 
 
 def _band_matrix(taps: torch.Tensor, n_in: int) -> torch.Tensor:

@@ -402,6 +402,33 @@ def winding_batch(edge_lists, sizes, device):
                 for e, (h, w) in zip(edge_lists, sizes, strict=True)]
     return launch_winding_batch(upload_winding_batch(edge_lists, sizes, device))
 
+
+def winding_uniform(lines, height: int, width: int):
+    """Winding fields (N, height, width) f32 of N edge lists lines (N, S, 4)
+    f32 of one size, in image pixel coordinates (zero rows are padding).
+
+    On a CUDA device the lists are already there: one launch of the winding
+    kernel computes every field (the batch table is the only upload).  On
+    the CPU: the plain version, coverage.winding per list."""
+    device = lines.device
+    height, width = int(height), int(width)
+    if not _kernel_device(device, "winding_uniform"):
+        return torch.stack([coverage.winding(e, height, width) for e in lines]) \
+            if lines.shape[0] else lines.new_zeros((0, height, width))
+    _check(lines, "lines", torch.float32, (None, None, 4), device)
+    n, segs, _ = lines.shape
+    table, (_segs, pixels, blocks) = _mask_table([segs] * n, [(height, width)] * n)
+    if max(pixels, blocks, 4 * n * segs) > _INT32_MAX:
+        raise ValueError("winding_uniform: the batch exceeds 32-bit offsets")
+    batch = WindingBatch(
+        edges=lines.view(-1, 4),
+        table=torch.from_numpy(table.astype(np.int32)).to(device),
+        sizes=((height, width),) * n, offsets=tuple(int(o) for o in table[:, 4]),
+        pixels=pixels, blocks=blocks,
+    )
+    return launch_winding_batch(batch).out.view(n, height, width)
+
+
 KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding)
 
 

@@ -1956,13 +1956,59 @@ def plan_from_lowered(lowered, device, patterns=None) -> DevicePlan:
                          lowered.tile, lowered.grid, device, patterns)
 
 
+class _PartFilter(NamedTuple):
+    """A filter part whose chain runs per frame (not a batched blur), with
+    what a frame of it reads made once at upload: its chain's device
+    constants and the index tensors of its spans, so a frame uploads
+    nothing (a CUDA graph can capture it)."""
+
+    flt: Any  # its filter.Filter
+    transform: Transform
+    content_bbox: tuple  # the source's bbox, device pixels
+    rows: tuple  # (first, count) of its rows in the level's canvas
+    span: tuple  # (si0, sj0, nsi, nsj): its source tiles' span, in tiles
+    local: torch.Tensor  # (count,) int64: each source row's tile in the span
+    out: tuple  # (di0, dj0, nti, ntj): its out tiles' span, in tiles
+    consts: Any  # flt.prepare(transform, device)
+    src_idx: torch.Tensor  # (n_out,) int32: each out tile's row in the out span
+    dst_idx: torch.Tensor  # (n_out,) int32: its pool row
+
+
+def _tile_span(tiles, grid_w: int):
+    """(i0, j0, ni, nj) of the row-major tile span holding `tiles`, and
+    each tile's row in it."""
+    rows = [int(t) // grid_w for t in tiles]
+    cols = [int(t) % grid_w for t in tiles]
+    i0, j0 = min(rows), min(cols)
+    nj = max(cols) - j0 + 1
+    return (i0, j0, max(rows) - i0 + 1, nj), [(r - i0) * nj + (c - j0)
+                                              for r, c in zip(rows, cols)]
+
+
+def _upload_part_filter(part, grid_w: int, dst: range, device) -> _PartFilter:
+    flt, transform, content_bbox = part["post"]
+    span, local = _tile_span(part["src_tiles"], grid_w)
+    out, out_local = _tile_span(part["out_tiles"], grid_w)
+
+    def rows(values, dtype):
+        return torch.as_tensor(np.asarray(values, dtype), device=device)
+
+    return _PartFilter(
+        flt=flt, transform=transform, content_bbox=tuple(content_bbox),
+        rows=(int(part["row_start"]), int(part["n_rows"])), span=span,
+        local=rows(local, np.int64), out=out, consts=flt.prepare(transform, device),
+        src_idx=rows(out_local, np.int32), dst_idx=rows(list(dst), np.int32),
+    )
+
+
 class _Level(NamedTuple):
     """One dependency level of isolation passes, on the device."""
 
-    plan: DevicePlan  # the level's merged pass program, grid (1, rows)
+    plan: Any  # its merged pass program, grid (1, rows): a DevicePlan, or a
+    # parallel.scene.ShardedPlan when the program is sharded over a mesh
     needs_pool: bool  # its items read rows of earlier levels
     copy_rows: tuple | None  # (canvas rows, pool rows) of its plain passes
-    filters: list  # per filter part not batched: (part, out rows, pool rows)
+    filters: list  # its filter parts that are not batched: _PartFilter each
     blur: Any  # its batched blur chunks (filter_batch.pack_level), or None
 
 
@@ -1971,19 +2017,38 @@ class DeviceProgram(NamedTuple):
     stream, and the pool size their rows need."""
 
     levels: list
-    main: DevicePlan
+    main: Any  # a DevicePlan, or a parallel.scene.ShardedPlan over a mesh
     pool_rows: int
     tile: int
     grid: tuple
+    device: torch.device  # where the pool, the post stage and the canvas live
 
 
-def upload_program(lowered, device) -> DeviceProgram:
-    """Upload every item stream, pool index and blur chunk of a Lowered
-    plan once; run_program then renders it any number of times."""
+def upload_program(lowered, device, mesh=None) -> DeviceProgram:
+    """Upload every item stream, pool index, blur chunk and filter chain
+    constant of a Lowered plan once; run_program then renders it any
+    number of times.
+
+    mesh: a parallel.mesh.Mesh to shard every item stream (each level's
+    pass program and the main stream) over, by tiles: each is partitioned
+    here once (parallel.scene.sharded_exec_fn), one DevicePlan per shard
+    on that shard's device.  The pool, the post stage and the assembled
+    canvas stay on `device`, unsharded, as in the JAX package.
+    """
     from .ops import filter_batch
 
     dev = torch.device(device)
     atlas = _upload_atlas(lowered, dev)  # pass groups can paint patterns too
+    if mesh is None:
+        def upload(items, bigs, clips, grid):
+            return _upload_items(items, bigs, clips, lowered.tile, grid, dev, atlas)
+    else:
+        from .parallel.scene import sharded_exec_fn
+
+        partition = sharded_exec_fn(mesh)
+
+        def upload(items, bigs, clips, grid):
+            return partition(items, bigs, clips, lowered.tile, grid, dev, lowered.patterns)
 
     def rows(values):
         return torch.as_tensor(np.asarray(values, np.int32), device=dev)
@@ -2003,17 +2068,17 @@ def upload_program(lowered, device) -> DeviceProgram:
                 copy_src.extend(range(p["row_start"], p["row_start"] + p["n_rows"]))
                 copy_dst.extend(dst)
             else:
-                filters.append((p, rows(_part_out_local(p, lowered.grid[1])), rows(dst)))
+                filters.append(_upload_part_filter(p, lowered.grid[1], dst, dev))
         levels.append(_Level(
-            plan=_upload_items(g["items"], g["bigs"], g["clips"], lowered.tile,
-                               (1, g["rows"]), dev, atlas),
+            plan=upload(g["items"], g["bigs"], g["clips"], (1, g["rows"])),
             needs_pool=bool(g["needs_pool"]),
             copy_rows=(rows(copy_src), rows(copy_dst)) if copy_src else None,
             filters=filters,
             blur=filter_batch.pack_level(chunks, lowered.tile, dev),
         ))
-    return DeviceProgram(levels, plan_from_lowered(lowered, dev, atlas), pool_total,
-                         int(lowered.tile), tuple(lowered.grid))
+    main = upload(lowered.items, lowered.bigs, lowered.clips, tuple(lowered.grid))
+    return DeviceProgram(levels, main, pool_total, int(lowered.tile), tuple(lowered.grid),
+                         dev)
 
 
 class _Ops(NamedTuple):
@@ -2043,7 +2108,7 @@ def new_pool(program: DeviceProgram):
         return None
     t = program.tile
     return torch.zeros((program.pool_rows, t, t, 4), dtype=torch.float32,
-                       device=program.main.lines.device)
+                       device=program.device)
 
 
 def run_program(program: DeviceProgram, viewport=(0, 0), linear_rgb: bool = False,
@@ -2061,16 +2126,24 @@ def run_program(program: DeviceProgram, viewport=(0, 0), linear_rgb: bool = Fals
     ops = _plain_ops() if plain else KERNEL_OPS
     if pool is None:
         pool = new_pool(program)
-    grid_w = program.grid[1]
     for level in program.levels:
-        canvas = ops.execute(level.plan, pool if level.needs_pool else None)
-        _apply_group_post(canvas, pool, level, grid_w, viewport, linear_rgb,
-                          program.tile, ops)
-    return ops.execute(program.main, pool)
+        canvas = _execute(ops, level.plan, pool if level.needs_pool else None)
+        _apply_group_post(canvas, pool, level, viewport, linear_rgb, program.tile, ops)
+    return _execute(ops, program.main, pool)
 
 
-def _apply_group_post(canvas, pool, level: _Level, grid_w, viewport, linear_rgb,
-                      t_size, ops: _Ops):
+def _execute(ops: _Ops, plan, pool):
+    """One item stream's canvas tiles: a DevicePlan through the scene
+    executor, a sharded one (parallel.scene.ShardedPlan) shard by shard."""
+    if isinstance(plan, DevicePlan):
+        return ops.execute(plan, pool)
+    from .parallel.scene import sharded_render_plan
+
+    return sharded_render_plan(plan, ops.execute, pool)
+
+
+def _apply_group_post(canvas, pool, level: _Level, viewport, linear_rgb, t_size,
+                      ops: _Ops):
     """A level's post stage: its new rows written into the pool in place.
 
     One pool_rows launch per output block: the level's plain pass rows
@@ -2081,52 +2154,36 @@ def _apply_group_post(canvas, pool, level: _Level, grid_w, viewport, linear_rgb,
     """
     if level.copy_rows is not None:
         ops.pool_rows(pool, canvas, *level.copy_rows)
-    for part, src_idx, dst_idx in level.filters:
-        tiles = _apply_part_filter(canvas, part, grid_w, viewport, linear_rgb, t_size)
-        ops.pool_rows(pool, tiles, src_idx, dst_idx)
+    for part in level.filters:
+        tiles = _apply_part_filter(canvas, part, viewport, linear_rgb, t_size)
+        ops.pool_rows(pool, tiles, part.src_idx, part.dst_idx)
     if level.blur is not None:
         tiles = ops.blur(canvas, level.blur, t_size, linear_rgb)
         ops.pool_rows(pool, tiles, level.blur.out_idx, level.blur.pool_idx)
 
 
-def _part_out_local(part, grid_w: int) -> list:
-    """Row of each out tile of a filter part in _apply_part_filter's
-    output (its out span, row-major)."""
-    d_rows = [int(t) // grid_w for t in part["out_tiles"]]
-    d_cols = [int(t) % grid_w for t in part["out_tiles"]]
-    di0, dj0 = min(d_rows), min(d_cols)
-    ntj = max(d_cols) - dj0 + 1
-    return [(r - di0) * ntj + (c - dj0) for r, c in zip(d_rows, d_cols)]
-
-
-def _apply_part_filter(canvas, part, grid_w, viewport, linear_rgb, t_size):
+def _apply_part_filter(canvas, part: _PartFilter, viewport, linear_rgb, t_size):
     """Filter post-op for one merged-group part: assemble the pass's rendered
     rows into an image, run the filter chain, cut the grown result into the
     tiles of its out span, row-major (the part's out tiles are rows
-    _part_out_local of it)."""
+    part.src_idx of it)."""
     from .core.layer import merge_at
 
-    flt, transform, content_bbox = part["post"]
     v0, v1 = int(viewport[0]), int(viewport[1])
-    src_tiles = part["src_tiles"]
-    rows = canvas[part["row_start"] : part["row_start"] + part["n_rows"]]
-    dev = canvas.device
+    first, count = part.rows
+    rows = canvas[first : first + count]
 
     # assemble the span of source tiles into one image
-    s_rows = [t // grid_w for t in src_tiles]
-    s_cols = [t % grid_w for t in src_tiles]
-    si0, sj0 = min(s_rows), min(s_cols)
-    nsi = max(s_rows) - si0 + 1
-    nsj = max(s_cols) - sj0 + 1
-    local = [(r - si0) * nsj + (c - sj0) for r, c in zip(s_rows, s_cols)]
+    si0, sj0, nsi, nsj = part.span
     span = canvas.new_zeros((nsi * nsj, t_size, t_size, 4))
-    span[torch.as_tensor(local, device=dev)] = rows
+    span[part.local] = rows
     image = span.reshape(nsi, nsj, t_size, t_size, 4)
     image = image.permute(0, 2, 1, 3, 4).reshape(nsi * t_size, nsj * t_size, 4)
 
     # bbox-tight source crop: the filter sees the same layer origin the
     # reference's interpreter would, so truncation-sensitive placement
     # (blur offsets) matches bit-for-bit
+    content_bbox = part.content_bbox
     or_, oc = si0 * t_size, sj0 * t_size  # span origin in canvas pixels
     r0 = max(content_bbox[0] - v0 - or_, 0)
     c0 = max(content_bbox[1] - v1 - oc, 0)
@@ -2134,14 +2191,10 @@ def _apply_part_filter(canvas, part, grid_w, viewport, linear_rgb, t_size):
     c1 = min(content_bbox[3] - v1 - oc, nsj * t_size)
     crop = image[r0:r1, c0:c1]
     layer = Layer(crop, (v0 + or_ + r0, v1 + oc + c0), pre_alpha=True, linear_rgb=linear_rgb)
-    filtered = flt(transform, layer).convert(pre_alpha=True, linear_rgb=linear_rgb)
+    filtered = part.flt(part.transform, layer, part.consts).convert(
+        pre_alpha=True, linear_rgb=linear_rgb)
 
-    out_tiles = part["out_tiles"]
-    d_rows = [int(t) // grid_w for t in out_tiles]
-    d_cols = [int(t) % grid_w for t in out_tiles]
-    di0, dj0 = min(d_rows), min(d_cols)
-    nti = max(d_rows) - di0 + 1
-    ntj = max(d_cols) - dj0 + 1
+    di0, dj0, nti, ntj = part.out
     dst = canvas.new_zeros((nti * t_size, ntj * t_size, 4))
     dst = merge_at(dst, filtered.image,
                    (filtered.x - v0 - di0 * t_size, filtered.y - v1 - dj0 * t_size))
@@ -2149,16 +2202,18 @@ def _apply_part_filter(canvas, part, grid_w, viewport, linear_rgb, t_size):
     return tiles.reshape(nti * ntj, t_size, t_size, 4).contiguous()
 
 
-def execute_lowered(lowered, device, viewport=(0, 0), linear_rgb: bool = False):
+def execute_lowered(lowered, device="cuda", viewport=(0, 0), linear_rgb: bool = False,
+                    mesh=None):
     """Execute a Lowered plan on `device`: canvas tiles (num_tiles, T, T, 4)
     f32 premultiplied.
 
     viewport: the canvas origin (v0, v1) in device pixels (filter
     post-ops place their output by it).  On a CUDA device the plan runs
     through the CUDA kernels (prepass winding, scene tiles, blur chunk,
-    pool rows); on the CPU through their plain PyTorch versions.
+    pool rows); on the CPU through their plain PyTorch versions.  mesh:
+    shard every item stream over it by tiles (upload_program).
     """
-    return run_program(upload_program(lowered, device), viewport, linear_rgb)
+    return run_program(upload_program(lowered, device, mesh), viewport, linear_rgb)
 
 
 def tiles_to_layer(tiles, grid, tile: int, viewport, linear_rgb: bool) -> Layer:
@@ -2174,7 +2229,7 @@ def tiles_to_layer(tiles, grid, tile: int, viewport, linear_rgb: bool) -> Layer:
 
 
 def render_fast(scene, transform: Transform, viewport, linear_rgb: bool = False,
-                *, tile: int = DEFAULT_TILE, device):
+                *, tile: int = DEFAULT_TILE, device="cuda"):
     """Whole-scene batched render on `device`; returns (Layer, hull), or
     None when the batched path cannot express the scene."""
     lowered = lower_scene(scene, transform, viewport, linear_rgb, tile, device=device)
@@ -2188,20 +2243,41 @@ def render_fast(scene, transform: Transform, viewport, linear_rgb: bool = False,
 class CompiledScene:
     """A scene lowered and uploaded once, rendered many times (serving).
 
-    Every item stream, pool index and blur chunk is uploaded once, and one
-    pass pool serves every frame; each frame re-runs the pass levels and
-    the main stream.
+    Every item stream, pool index, blur chunk and filter chain constant is
+    uploaded once, and one pass pool serves every frame; each frame re-runs
+    the pass levels and the main stream.  mesh: shard every item stream
+    over a parallel.mesh.Mesh by tiles (upload_program).
+
+    render_tiles_many(k) on a CUDA device replays one frame captured in a
+    CUDA graph, so the host issues one graph launch per frame instead of
+    the frame's kernel launches and tensor operations.  The graph is
+    captured at the first call, once per instance: the instance fixes
+    everything the captured work depends on (the plan, the viewport,
+    linear_rgb, the device), so one graph can never serve another input.
     """
 
-    def __init__(self, lowered, viewport, linear_rgb: bool, device):
+    def __init__(self, lowered, viewport, linear_rgb: bool, mesh=None, *, device="cuda"):
         self._lowered = lowered
         self._viewport = viewport
         self._linear_rgb = linear_rgb
-        self._program = upload_program(lowered, device)
+        self._mesh = mesh
+        self._program = upload_program(lowered, device, mesh)
         self._pool = new_pool(self._program)
+        self._graph = None  # torch.cuda.CUDAGraph of one frame, captured on first use
+        self._frame = None  # the tiles that graph writes
+        self.replays = 0  # frames replayed from the graph
+        self.frame_launches = None  # kernel launches of the captured frame, by kernel
 
     @property
-    def plan(self) -> DevicePlan:
+    def tile(self) -> int:
+        return self._lowered.tile
+
+    @property
+    def hull(self):
+        return self._lowered.hull
+
+    @property
+    def plan(self):
         """The main item stream on the device."""
         return self._program.main
 
@@ -2217,6 +2293,47 @@ class CompiledScene:
         return run_program(self._program, self._viewport[:2], self._linear_rgb,
                            self._pool, plain=plain)
 
+    def render_tiles_many(self, k: int):
+        """Render k frames; returns the last one's tiles (num_tiles, T, T, 4),
+        a tensor the caller owns.
+
+        On a CUDA device each frame is a replay of the captured graph on the
+        current stream (a failed capture raises); on the CPU each frame runs
+        render_tiles.  Single-device plans only."""
+        if self._mesh is not None:
+            raise ValueError("render_tiles_many: single-device plans only")
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"render_tiles_many: k must be >= 1, got {k}")
+        if self._program.device.type != "cuda":
+            for _ in range(k):
+                tiles = self.render_tiles()
+            return tiles
+        if self._graph is None:
+            self._capture()
+        for _ in range(k):
+            self._graph.replay()
+        self.replays += k
+        return self._frame.clone()
+
+    def _capture(self) -> None:
+        """Capture one frame in a CUDA graph, after one eager frame on a
+        side stream (it loads the kernels and sizes the caching
+        allocator's blocks outside the capture)."""
+        dev = self._program.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.render_tiles()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = {k.__name__: k.launches for k in fused_exec.KERNELS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            frame = self.render_tiles()
+        self.frame_launches = {k.__name__: k.launches - before[k.__name__]
+                               for k in fused_exec.KERNELS}
+        self._graph, self._frame = graph, frame
+
     def render(self) -> Layer:
         """Viewport-sized premultiplied Layer."""
         return tiles_to_layer(
@@ -2224,14 +2341,25 @@ class CompiledScene:
             self._viewport, self._linear_rgb,
         )
 
+    def render_many(self, k: int) -> Layer:
+        """k frames (render_tiles_many); the last one as a Layer."""
+        return tiles_to_layer(
+            self.render_tiles_many(k), self._lowered.grid, self._lowered.tile,
+            self._viewport, self._linear_rgb,
+        )
+
 
 def compile_scene(scene, transform: Transform, viewport, linear_rgb: bool = False,
-                  *, tile: int = DEFAULT_TILE, device):
-    """Lower a scene once for repeated rendering; None if unsupported."""
+                  mesh=None, *, tile: int = DEFAULT_TILE, device="cuda"):
+    """Lower a scene once for repeated rendering; None if unsupported.
+
+    mesh: shard its item streams over a parallel.mesh.Mesh (CompiledScene);
+    device: where the plan lowers and, with a mesh, where the pool and the
+    assembled canvas live."""
     lowered = lower_scene(scene, transform, viewport, linear_rgb, tile, device=device)
     if lowered is None:
         return None
-    return CompiledScene(lowered, viewport, linear_rgb, device)
+    return CompiledScene(lowered, viewport, linear_rgb, mesh, device=device)
 
 
 def can_lower(scene, linear_rgb: bool, in_clip: bool = False) -> bool:

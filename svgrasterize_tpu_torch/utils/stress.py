@@ -97,3 +97,25 @@ def stress_doc(n_items: int = 2000, size: int = 1024, seed: int = 0) -> str:
         f'<svg xmlns="http://www.w3.org/2000/svg" width="{size}" '
         f'height="{size}"><defs>{"".join(defs)}</defs>{"".join(body)}</svg>'
     )
+
+
+def edge_batch(n_paths: int, n_segs: int, extent: float, seed: int = 0):
+    """A batch of n_paths random closed polygons of n_segs edges each, as
+    (lines (N, S, 4) f32 edge lists (a0, a1, b0, b1) in an extent x extent
+    image, colors (N, 4) f32 premultiplied): the input of
+    parallel.batch.fill_batch (the JAX repository's benchmark fill batch,
+    the same arrays for the same arguments)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    angles = np.sort(rng.uniform(0, 2 * np.pi, size=(n_paths, n_segs)), axis=1)
+    radius = rng.uniform(0.2, 0.48, size=(n_paths, 1)) * extent
+    center = rng.uniform(0.3, 0.7, size=(n_paths, 2)) * extent
+    pts = np.stack(
+        [center[:, 0:1] + radius * np.cos(angles), center[:, 1:2] + radius * np.sin(angles)],
+        axis=-1,
+    )  # (N, S, 2)
+    lines = np.concatenate([pts, np.roll(pts, -1, axis=1)], axis=-1).astype(np.float32)
+    colors = rng.uniform(0.1, 1.0, size=(n_paths, 4)).astype(np.float32)
+    colors[:, :3] *= colors[:, 3:]
+    return lines, colors

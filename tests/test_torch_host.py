@@ -100,6 +100,10 @@ def test_import_leaves_jax_out():
         "import svgrasterize_tpu_torch, svgrasterize_tpu_torch.cli\n"
         "import svgrasterize_tpu_torch.render_plan, svgrasterize_tpu_torch.ops.fused_exec\n"
         "import svgrasterize_tpu_torch.ops.cuda_lib, chip_smoke\n"
+        "import svgrasterize_tpu_torch.parallel\n"
+        "import svgrasterize_tpu_torch.parallel.mesh, svgrasterize_tpu_torch.parallel.scene\n"
+        "import svgrasterize_tpu_torch.parallel.batch, svgrasterize_tpu_torch.parallel.atlas\n"
+        "import svgrasterize_tpu_torch.parallel.distributed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'svgrasterize_tpu' or m.startswith('svgrasterize_tpu.')]\n"
         "print(bad)\n"
