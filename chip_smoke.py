@@ -32,8 +32,16 @@ ms/frame of the flat and pass documents at T = 16, 32 and 64, both
 documents over a mesh of four shards on the card (within 1e-5 of one
 device), a fill batch through the winding kernel, sprite atlases of 13
 documents x 4 (rendered once each) and of 52 distinct ones (within 1e-5 of
-the combined plan) and a sharded one, and the multi-process dry run as one
-NCCL rank in a process of its own.  Launch counts are set to 0 just before
+the combined plan) and a sharded one.  Then the tools: a specimen sheet of
+the bundled Source Sans Pro (1,300 glyphs, 32 px cells, 42 a row) and a
+sprite sheet of 52 icon documents rendered through the atlas, each on the
+card and on the CPU (PNGs within 1/255, sprite SVGs byte-equal), with one
+specimen render split by profiling stages, and font_transform and ttf2svg
+once each; torch.profiler traces (utils.profiling.trace_to, under
+build/profile) of one eager frame of the pass document split by kernel and
+of one fill batch, its winding kernel apart from the rest of the call; and
+the multi-process dry run as one NCCL rank in a process of its own.
+Launch counts are set to 0 just before
 each path and read just after it.  Each phase prints one line; any failure
 exits non-zero.  The line before the last is a JSON object with per-kernel
 launches (summed over the paths), errors, times and least-time bounds; the
@@ -76,6 +84,15 @@ SHARDS = 4  # shards of the single-process mesh, all on the one card
 FILL_PATHS, FILL_SEGS, FILL_SIZE = 64, 64, 256  # the fill batch: paths x edges at size^2
 ATLAS_DOCS, ATLAS_COPIES, ATLAS_CELL = 13, 4, 192  # 52 cells of 192, 7 x 8
 ATLAS_TOL = 1e-5  # the same items at other placements: gradients' float rounding
+# the tools: a specimen sheet of the bundled font's 1,300 glyphs, 42 cells of
+# 32 px a row (1344 px wide), and a sprite sheet of 52 icons in cells of 192
+# (7 columns: the [atlas] phase's 1344 x 1536)
+SPECIMEN_FONT, SPECIMEN_SIZE, SPECIMEN_COLS = "Source Sans Pro", 32, 42
+SPRITE_ICONS, SPRITE_COLS = ATLAS_DOCS * ATLAS_COPIES, 7
+# the port's kernels as a profiler trace names them (their __global__ names)
+TRACE_KERNELS = {"prepass_kernel": "prepass_winding", "scene_kernel": "scene_tiles",
+                 "blur_level_kernel": "blur_chunk", "pool_rows_kernel": "pool_rows",
+                 "winding_kernel": "winding"}
 
 # Least-time bounds (NVIDIA's H100 SXM data sheet, full 700 W power limit):
 # device memory rate and the f32 rate outside the tensor cores.
@@ -1122,6 +1139,288 @@ def _sharded_launches(cs) -> int:
     return sum(s.plan is not None for p in plans for s in p.shards)
 
 
+def _png_file(path) -> np.ndarray:
+    from svgrasterize_tpu_torch.core.png import read_png
+
+    with open(path, "rb") as f:
+        return read_png(f.read()).astype(np.int16)
+
+
+def _tool_pair(torch, label: str, run, out_cuda: str, out_cpu: str, path_launches: dict):
+    """One tool's main path on the card (its default device; counts set to 0
+    just before and read just after) and the same call with --device cpu:
+    returns (seconds on the card, seconds on the CPU, the two PNGs)."""
+    from svgrasterize_tpu_torch.ops import fused_exec
+
+    fused_exec.reset_launch_counts()
+    t0 = time.monotonic()
+    rc = run(out_cuda, [])
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    path_launches[label] = _launches()
+    t0 = time.monotonic()
+    rc_cpu = run(out_cpu, ["--device", "cpu"])
+    cpu_s = time.monotonic() - t0
+    if rc != 0 or rc_cpu != 0:
+        raise RuntimeError(f"{label} exited {rc} (cuda), {rc_cpu} (cpu)")
+    if path_launches[label]["scene_tiles"] == 0:
+        raise RuntimeError(f"{label} did not launch the scene kernel: {path_launches[label]}")
+    return card_s, cpu_s, _png_file(out_cuda + ".png"), _png_file(out_cpu + ".png")
+
+
+def _png_diff(img, ref, label: str) -> int:
+    if img.shape != ref.shape or int(img[..., 3].max()) == 0:
+        raise RuntimeError(f"{label} PNG {img.shape} is blank or not {ref.shape}")
+    diff = int(np.abs(img - ref).max())
+    if diff > PNG_TOL:
+        raise RuntimeError(f"{label} PNG differs from the CPU render by {diff}/255")
+    return diff
+
+
+def _tools_phase(torch, dev, tmp: str, path_launches: dict) -> None:
+    """The tools as a user runs them: a specimen sheet of the bundled font
+    and a sprite sheet of icon documents (main paths), each on the card and
+    on the CPU; where one specimen render's host time goes (profiling.stage
+    around each step); font_transform and ttf2svg once each."""
+    import gzip
+    import importlib.util
+
+    from svgrasterize_tpu_torch.core.transform import Transform
+    from svgrasterize_tpu_torch.ops import fused_exec
+    from svgrasterize_tpu_torch.render_plan import plan_from_lowered, lower_scene, tiles_to_layer
+    from svgrasterize_tpu_torch.text.fonts import DEFAULT_FONTS
+    from svgrasterize_tpu_torch.tools import font_transform, specimen, spritify, ttf2svg
+    from svgrasterize_tpu_torch.utils import profiling
+
+    # specimen: the sheet through the CLI entry point, card and CPU
+    sheet_args = [SPECIMEN_FONT, "-s", str(SPECIMEN_SIZE), "--cols", str(SPECIMEN_COLS)]
+    card_s, cpu_s, img, ref = _tool_pair(
+        torch, "specimen",
+        lambda out, extra: specimen.main(sheet_args[:1] + [out + ".png"] + sheet_args[1:] + extra),
+        os.path.join(tmp, "sheet_cuda"), os.path.join(tmp, "sheet_cpu"), path_launches)
+    diff = _png_diff(img, ref, "specimen")
+    # where one render's time goes, each step a profiling stage (host wall
+    # time; the kernels' stage ends in a synchronize, and the kernels alone
+    # are timed by CUDA events)
+    profiling.enable()
+    profiling.reset()
+    with profiling.stage("parse font + build sheet"):
+        font = specimen._load_font(SPECIMEN_FONT)
+        scene, (sw, sh) = specimen.specimen_scene(font, SPECIMEN_SIZE, SPECIMEN_COLS)
+    vp = (0, 0, int(np.ceil(sh)), int(np.ceil(sw)))
+    with profiling.stage("lower"):
+        lowered = lower_scene(scene, Transform().matrix(0, 1, 0, 1, 0, 0), vp, False, 32,
+                              device=dev)
+    if lowered is None or lowered.groups:
+        raise RuntimeError("the specimen sheet must lower to one pass")
+    with profiling.stage("upload"):
+        plan = plan_from_lowered(lowered, dev)
+        torch.cuda.synchronize()
+    with profiling.stage("kernels"):
+        tiles = fused_exec.execute_items_fused(plan)
+        torch.cuda.synchronize()
+    with profiling.stage("png"):
+        layer = tiles_to_layer(tiles, lowered.grid, lowered.tile, vp, False)
+        layer.background([1.0, 1.0, 1.0, 1.0]).write_png(io.BytesIO())
+    split = "; ".join(" ".join(ln.split()) for ln in profiling.report().splitlines())
+    profiling.enable(False)
+    kernels_ms = _time_ms(torch, lambda: fused_exec.execute_items_fused(plan), 10)
+    n_items = int((plan.tile_id < plan.num_tiles).sum())
+    _say("tools", (
+        f"specimen {SPECIMEN_FONT} ({len(font.glyphs)} glyphs) -s {SPECIMEN_SIZE} --cols"
+        f" {SPECIMEN_COLS}: {img.shape[1]}x{img.shape[0]} sheet, {n_items} items, big rows"
+        f" {[tuple(b.shape[:2]) for b in plan.bigs]}; {card_s:.3f}s (cuda), {cpu_s:.3f}s"
+        f" (cpu), max diff {diff}/255; launches {path_launches['specimen']}; one render by"
+        f" stage: {split}; kernels alone {kernels_ms:.4f} ms (CUDA events)"
+    ))
+
+    # spritify --render: icon documents packed and rendered through the atlas
+    icons = os.path.join(tmp, "icons")
+    os.makedirs(icons)
+    for i in range(SPRITE_ICONS):
+        with open(os.path.join(icons, f"icon_{i:02d}.svg"), "w", encoding="utf-8") as f:
+            f.write(icon_doc(i))
+    sprite_args = ["-s", str(ATLAS_CELL), "-m", "0", "-c", str(SPRITE_COLS)]
+    card_s, cpu_s, img, ref = _tool_pair(
+        torch, "spritify",
+        lambda out, extra: spritify.main([icons, out + ".svg"] + sprite_args
+                                         + ["--render", out + ".png"] + extra),
+        os.path.join(tmp, "sprite_cuda"), os.path.join(tmp, "sprite_cpu"), path_launches)
+    diff = _png_diff(img, ref, "spritify")
+    with open(os.path.join(tmp, "sprite_cuda.svg"), "rb") as a, \
+            open(os.path.join(tmp, "sprite_cpu.svg"), "rb") as b:
+        if a.read() != b.read():
+            raise RuntimeError("spritify wrote another sprite SVG on the card than on the CPU")
+    _say("tools", (
+        f"spritify --render {SPRITE_ICONS} icons {' '.join(sprite_args)}:"
+        f" {img.shape[1]}x{img.shape[0]} sheet; {card_s:.3f}s (cuda), {cpu_s:.3f}s (cpu),"
+        f" max diff {diff}/255, sprite SVGs byte-equal; launches {path_launches['spritify']}"
+    ))
+
+    # font_transform on the bundled fonts, ttf2svg on a TTF built in memory
+    fonts_svg = os.path.join(tmp, "fonts.svg")
+    with gzip.open(DEFAULT_FONTS, "rb") as src, open(fonts_svg, "wb") as dst:
+        dst.write(src.read())
+    t0 = time.monotonic()
+    rc = font_transform.main(["translate(0 100) scale(2)", fonts_svg,
+                              os.path.join(tmp, "fonts_x2.svg")])
+    ft_s = time.monotonic() - t0
+    if rc != 0:
+        raise RuntimeError(f"font_transform exited {rc}")
+    ttf = os.path.join(tmp, "tiny.ttf")
+    if importlib.util.find_spec("fontTools") is None:
+        # neither fontforge nor fontTools: ttf2svg must say so and exit 1
+        rc_ttf = ttf2svg.main([ttf, os.path.join(tmp, "tiny.svg")])
+        if rc_ttf != 1:
+            raise RuntimeError(f"ttf2svg without fontforge or fontTools exited {rc_ttf}")
+        done = "ttf2svg: no fontforge or fontTools on this machine, exited 1 saying so"
+    else:
+        tiny_ttf(ttf)
+        t0 = time.monotonic()
+        rc_ttf = ttf2svg.main([ttf, os.path.join(tmp, "tiny.svg")])
+        ttf_s = time.monotonic() - t0
+        converted = specimen._load_font(ttf)
+        if rc_ttf != 0 or converted is None or len(converted.glyphs) != 2:
+            raise RuntimeError(f"ttf2svg exited {rc_ttf}")
+        done = f"ttf2svg of a 2-glyph TTF {ttf_s:.3f}s, loaded back as {converted.family!r}"
+    _say("tools", f"font_transform of the bundled fonts ({os.path.getsize(fonts_svg)} bytes)"
+                  f" {ft_s:.3f}s; {done}")
+
+
+def tiny_ttf(path: str) -> None:
+    """A TTF of two glyphs ('a' with a quadratic curve, '&'), built in
+    memory with fontTools."""
+    from fontTools.fontBuilder import FontBuilder
+    from fontTools.pens.ttGlyphPen import TTGlyphPen
+
+    outlines = {".notdef": [(100, 0), (400, 0), (400, 700), (100, 700)],
+                "a": [(50, 0), (450, 0), (450, 500), (50, 500)],
+                "ampersand": [(100, 0), (300, 0), (200, 650)]}
+    glyphs = {}
+    for name, pts in outlines.items():
+        pen = TTGlyphPen(None)
+        pen.moveTo(pts[0])
+        for pt in pts[1:]:
+            pen.lineTo(pt)
+        if name == "a":
+            pen.qCurveTo((250, 700), (50, 500))
+        pen.closePath()
+        glyphs[name] = pen.glyph()
+    fb = FontBuilder(1000, isTTF=True)
+    fb.setupGlyphOrder(list(outlines))
+    fb.setupCharacterMap({ord("a"): "a", ord("&"): "ampersand"})
+    fb.setupGlyf(glyphs)
+    fb.setupHorizontalMetrics({n: (500, 0) for n in outlines})
+    fb.setupHorizontalHeader(ascent=800, descent=-200)
+    fb.setupNameTable({"familyName": "TinyTT", "styleName": "Regular"})
+    fb.setupOS2()
+    fb.setupPost()
+    fb.save(path)
+
+
+def _trace_events(log_dir: str) -> list:
+    """The events of the one Chrome trace profiling.trace_to wrote into
+    log_dir."""
+    traces = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    if len(traces) != 1:
+        raise RuntimeError(f"{log_dir} holds {len(traces)} traces")
+    with open(os.path.join(log_dir, traces[0]), encoding="utf-8") as f:
+        return json.load(f)["traceEvents"]
+
+
+def _device_events(events, lo: float = -float("inf"), hi: float = float("inf")) -> dict:
+    """{kind: {name: [count, device us]}} of the device events that start in
+    [lo, hi) (trace microseconds); kind is the trace's category ("kernel",
+    "gpu_memcpy", "gpu_memset")."""
+    out = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and lo <= float(ev["ts"]) < hi:
+            entry = out.setdefault(ev["cat"], {}).setdefault(ev["name"], [0, 0.0])
+            entry[0] += 1
+            entry[1] += float(ev.get("dur", 0.0))
+    return out
+
+
+def _port_kernel(name: str):
+    """The fused_exec wrapper whose kernel a trace's kernel name is, or None
+    for PyTorch's own kernels."""
+    import re
+
+    m = re.search(r"(?<![A-Za-z0-9_])(" + "|".join(TRACE_KERNELS) + r")(?![A-Za-z0-9_])", name)
+    return TRACE_KERNELS[m.group(1)] if m else None
+
+
+def _profile_phase(torch, pass_cs, lines, colors, path_launches: dict) -> None:
+    """A torch.profiler trace (profiling.trace_to) of one eager frame of the
+    pass document, split by kernel, and of one fill_batch call, its winding
+    kernel apart from the table's upload and the packing."""
+    import shutil
+
+    from svgrasterize_tpu_torch.ops import fused_exec
+    from svgrasterize_tpu_torch.parallel import batch as pbatch
+    from svgrasterize_tpu_torch.utils import profiling
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # one trace of both, each in a stage of its own: one eager frame of the
+    # pass document (a main path: counts set to 0 just before, read just
+    # after), then one fill_batch call.  Each ends in a synchronize, so the
+    # fill batch's device events start after its stage does and every
+    # earlier one belongs to the frame.
+    pass_cs.render_tiles()
+    pbatch.fill_batch(lines, colors, FILL_SIZE, FILL_SIZE, device=lines.device)
+    torch.cuda.synchronize()
+    fused_exec.reset_launch_counts()
+    with profiling.trace_to(root):
+        with profiling.stage("svgr_pass_frame"):
+            pass_cs.render_tiles()
+            torch.cuda.synchronize()
+        path_launches["profile_pass_frame"] = counts = _launches()
+        with profiling.stage("svgr_fill_batch"):
+            t0 = time.perf_counter()
+            pbatch.fill_batch(lines, colors, FILL_SIZE, FILL_SIZE, device=lines.device)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+    events = _trace_events(root)
+    t_fill = min(float(ev["ts"]) for ev in events if ev.get("name") == "svgr_fill_batch")
+
+    kernels = _device_events(events, hi=t_fill).get("kernel", {})
+    traced = {_port_kernel(n) for n in kernels} - {None}
+    missing = [k for k, v in counts.items() if v and k not in traced]
+    if not kernels or missing:
+        raise RuntimeError(f"the pass frame's trace holds no device event of {missing or 'any kernel'}")
+    port_us = sum(us for n, (_c, us) in kernels.items() if _port_kernel(n))
+    torch_us = sum(us for n, (_c, us) in kernels.items() if not _port_kernel(n))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    _say("profile", (
+        f"pass frame (eager render_tiles, pass_doc {CLI_SIZE}^2 T=32): {len(kernels)} kernels,"
+        f" {sum(c for c, _us in kernels.values())} launches, device time {port_us / 1e3:.4f} ms"
+        f" in the port's five kernels (launches {counts}), {torch_us / 1e3:.4f} ms in PyTorch's"
+        f" own (the filter chains and canvas ops)"
+    ))
+    for name, (n, us) in top:
+        _say("profile", f"  {us / 1e3:9.4f} ms x{n:<4d} {name[:110]}")
+
+    # the fill batch: the winding kernel against the rest of the call
+    trace = _device_events(events, lo=t_fill)
+    kernels = trace.get("kernel", {})
+    wind = [(c, us) for n, (c, us) in kernels.items() if _port_kernel(n) == "winding"]
+    if len(wind) != 1 or wind[0][0] != 1:
+        raise RuntimeError(f"the fill_batch trace holds {wind} winding kernel events; its"
+                           f" device events: {trace}")
+    other_us = sum(us for n, (_c, us) in kernels.items() if _port_kernel(n) != "winding")
+    copies = trace.get("gpu_memcpy", {})
+    _say("profile", (
+        f"fill_batch {FILL_PATHS} x {FILL_SEGS} edges at {FILL_SIZE}^2: winding kernel"
+        f" {wind[0][1] / 1e3:.4f} ms device time; other kernels (fill rule, colour)"
+        f" {other_us / 1e3:.4f} ms; table upload {sum(us for _c, us in copies.values()) / 1e3:.4f}"
+        f" ms in {sum(c for c, _us in copies.values())} copies; the call {call_ms:.4f} ms host"
+        f" wall time under the profiler"
+    ))
+
+
 # ----------------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------------
@@ -1985,7 +2284,12 @@ def main() -> int:
         _say("atlas", f"render_atlas over {SHARDS} shards vs one device: max abs diff {err:.3g};"
                       f" launches {path_launches['atlas_sharded']}")
 
-        # 22. the multi-process dry run: one NCCL rank in its own process
+        # 22. the tools (main paths), and 23. profiler traces of the pass
+        # frame and of the fill batch
+        _tools_phase(torch, dev, tmp, path_launches)
+        _profile_phase(torch, pass_cs, lines_d, colors_d, path_launches)
+
+        # 24. the multi-process dry run: one NCCL rank in its own process
         from svgrasterize_tpu_torch.parallel.distributed import spawn_local
 
         t0 = time.monotonic()

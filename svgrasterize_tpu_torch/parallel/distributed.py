@@ -14,6 +14,7 @@ The twin of the JAX package's parallel/distributed.py:
   * `spawn_local()` launches N such workers as separate OS processes.
 
 Run by hand:  python -m svgrasterize_tpu_torch.parallel.distributed --processes 2
+(on CUDA devices by default, NCCL; `--device cpu` for gloo on the CPU)
 """
 
 from __future__ import annotations
@@ -59,11 +60,21 @@ MULTIPASS_DOC = """
 _PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 
 
+def _require_card(device: str) -> None:
+    """Raise when the ranks are to render on CUDA and there is no card."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda: no CUDA device is available")
+
+
 def initialize(coordinator: str, num_processes: int, process_id: int,
-               device: str = "cpu") -> None:
+               device: str = "cuda") -> None:
     """Join the process group at `coordinator` (host:port): NCCL when the
     ranks render on CUDA devices, gloo on the CPU."""
     import torch.distributed as dist
+
+    _require_card(device)
 
     dist.init_process_group(
         "nccl" if device == "cuda" else "gloo",
@@ -79,12 +90,13 @@ def _devices_of(rank: int, devices_per_process: int, device: str) -> list:
 
     if device != "cuda":
         return [torch.device("cpu")] * devices_per_process
+    _require_card(device)
     count = max(torch.cuda.device_count(), 1)
     return [torch.device("cuda", (rank * devices_per_process + i) % count)
             for i in range(devices_per_process)]
 
 
-def global_mesh(devices_per_process: int = 1, device: str = "cpu", axis: str = "data"):
+def global_mesh(devices_per_process: int = 1, device: str = "cuda", axis: str = "data"):
     """One-axis mesh over every process's shards (after initialize())."""
     import torch.distributed as dist
 
@@ -97,7 +109,7 @@ def global_mesh(devices_per_process: int = 1, device: str = "cpu", axis: str = "
 
 def worker(coordinator: str, num_processes: int, process_id: int,
            full: bool = False, devices_per_process: int = 2,
-           device: str = "cpu") -> None:
+           device: str = "cuda") -> None:
     """One process of the multi-process dry run; prints one
     `[distributed] ok` line on success (rank 0).  With full, also runs a
     multi-pass + pattern plan and a sharded sprite-atlas batch."""
@@ -170,10 +182,11 @@ def _free_port() -> int:
 
 
 def spawn_local(num_processes: int = 2, devices_per_process: int = 2,
-                timeout: float = 600.0, full: bool = False, device: str = "cpu") -> str:
+                timeout: float = 600.0, full: bool = False, device: str = "cuda") -> str:
     """Run the dry run as real separate OS processes on this host (gloo on
     the CPU, NCCL on CUDA devices).  Returns rank 0's `[distributed] ok
     ...` line; raises on failure, after stopping every worker."""
+    _require_card(device)
     coordinator = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -223,7 +236,7 @@ def main(argv=None) -> int:
     parser.add_argument("--processes", type=int, default=2)
     parser.add_argument("--id", type=int, default=0)
     parser.add_argument("--devices-per-process", type=int, default=2)
-    parser.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    parser.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     args = parser.parse_args(argv)
 
     if args.worker:

@@ -104,6 +104,10 @@ def test_import_leaves_jax_out():
         "import svgrasterize_tpu_torch.parallel.mesh, svgrasterize_tpu_torch.parallel.scene\n"
         "import svgrasterize_tpu_torch.parallel.batch, svgrasterize_tpu_torch.parallel.atlas\n"
         "import svgrasterize_tpu_torch.parallel.distributed\n"
+        "import svgrasterize_tpu_torch.tools, svgrasterize_tpu_torch.tools.font_transform\n"
+        "import svgrasterize_tpu_torch.tools.specimen, svgrasterize_tpu_torch.tools.spritify\n"
+        "import svgrasterize_tpu_torch.tools.ttf2svg\n"
+        "import svgrasterize_tpu_torch.utils.debug, svgrasterize_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'svgrasterize_tpu' or m.startswith('svgrasterize_tpu.')]\n"
         "print(bad)\n"
