@@ -14,8 +14,11 @@ scene kernel on random plans reaching every item kind at T = 16, 32 and 64;
 the blur-chunk kernel on a document level's chunks and on random chunks,
 each alone and packed into one level, one launch each; the winding kernel
 on one interpreter render's masks, one launch per mask and all of them in
-one batched launch, which must agree bit for bit), then drives the port's
-main paths: the
+one batched launch, which must agree bit for bit, on random lists up to
+2,048 edges at 1024 x 1024 and on the adversarial lists of
+tests/test_torch_winding.py at 1024 x 1024 and 4096 wide, repeated calls
+bit-equal and back-to-back batches through the pinned staging buffer),
+then drives the port's main paths: the
 CLI renders a generated pass-free 1,536-draw document at 1488 x 1488 and a
 compiled scene of it serves 5 frames at 3840 x 3840; the CLI renders a
 generated document full of isolation passes (group opacity, masks, clips,
@@ -82,6 +85,7 @@ PATTERN_GROUP = "pattern_group"  # the id the [interp_id] render draws
 SERVE_MANY = 50  # frames per timed render_tiles_many call
 SHARDS = 4  # shards of the single-process mesh, all on the one card
 FILL_PATHS, FILL_SEGS, FILL_SIZE = 64, 64, 256  # the fill batch: paths x edges at size^2
+WINDING_CASES, WINDING_WIDE = 1024, 4096  # the winding kernel's adversarial lists
 ATLAS_DOCS, ATLAS_COPIES, ATLAS_CELL = 13, 4, 192  # 52 cells of 192, 7 x 8
 ATLAS_TOL = 1e-5  # the same items at other placements: gradients' float rounding
 # the tools: a specimen sheet of the bundled font's 1,300 glyphs, 42 cells of
@@ -106,6 +110,9 @@ F32_OPS_PER_S = 67e12
 # antiderivatives 7, difference and division 2, times sign * dy 1, the sum 1.
 ROW_OPS = 12
 PAIR_OPS = 16
+# per output pixel of the scanline winding kernel: the carries' running sum,
+# the row base and the partial cell added to it
+SCAN_OPS = 3
 # operations per (item, pixel) of the scene kernel after the winding:
 # coverage 2, clip 1, floor 1, opacity 1, OVER of four channels 9; paint is
 # not counted, so the bound stays a least time
@@ -591,6 +598,82 @@ def icon_doc(index: int) -> str:
     )
 
 
+def winding_cases(height: int, width: int, wide: int, seed: int = 0) -> dict:
+    """Adversarial edge lists of the whole-image winding kernel, name ->
+    (lines (S, 4) f32 (a0, a1, b0, b1), mask height, mask width).
+
+    At height x width: edges crossing column 0 and column width, edges
+    wholly left and wholly right of the mask, vertical edges on integer and
+    non-integer columns, near-vertical ones whose slab columns differ by at
+    most 1e-7 (the closed form's |den| <= 1e-7 branch), steep and shallow
+    edges, edges outside [0, height), horizontal and padding rows among live
+    ones, and a dense random list (many edges sharing a cell or a carry
+    column).  Then an empty list, a 1 x 1, a 1-row and a 1-column mask, and
+    a 5-row mask `wide` columns wide, beyond one column segment of the
+    kernel (edges on segment borders, shallow edges across segments).
+    Random steep edges are left out: where a slab's columns nearly coincide
+    the closed form amplifies one ulp of them, so two correct
+    implementations that round a column apart differ there."""
+    h, w = float(height), float(width)
+    rng = np.random.default_rng(seed)
+
+    def rand(n, ys, xs):
+        e = np.empty((n, 4), np.float32)
+        e[:, 0::2] = rng.uniform(*ys, (n, 2))
+        e[:, 1::2] = rng.uniform(*xs, (n, 2))
+        return e
+
+    def fixed(rows):
+        return np.array(rows, np.float32).reshape(-1, 4)
+
+    y0, y1 = round(0.08 * h) + 0.25, round(0.83 * h) - 0.5
+    near = np.array([0.5, 0.5, 3.0, 0.25, 1e-8, 7.75], np.float32)
+    cases = {
+        "crossing_borders": (np.concatenate([
+            rand(12, (-2, h + 2), (-0.35 * w, 0.3 * w)),
+            rand(12, (-2, h + 2), (0.7 * w, 1.35 * w)),
+            fixed([[y0, -5, y0, w + 5], [y0, w + 5, y1, w + 5], [y1, w + 5, y1, -5],
+                   [y1, -5, y0, -5]])]), height, width),
+        "outside_columns": (np.concatenate([
+            rand(10, (-3, h + 3), (-1.5 * w, -0.5)), rand(10, (-3, h + 3), (w + 0.5, 2.5 * w)),
+            rand(6, (0, h), (0, w))]), height, width),
+        "vertical": (fixed([
+            [0.04 * h, round(w / 8), 0.83 * h, round(w / 8)],
+            [0.92 * h, round(w / 4) + 0.5, 0.14 * h, round(w / 4) + 0.5],
+            [0, 0, h, 0], [h, w, 0, w],
+            [0.17 * h, round(0.45 * w) - 0.001, 0.37 * h, round(0.45 * w) - 0.001],
+            [0.31 * h, round(0.75 * w), 0.08 * h, round(0.75 * w)],
+            [0.1 * h, round(0.3 * w) + 0.25, 0.81 * h, round(0.3 * w) + 0.25]]), height, width),
+        "near_vertical": (np.stack([
+            np.array([0.04, 0.21, 0.0, 0.27, 0.58, 0.14], np.float32) * np.float32(h), near,
+            np.array([0.49, 0.65, 0.75, 0.69, 0.05, 0.86], np.float32) * np.float32(h),
+            np.nextafter(near, np.float32(np.inf))], 1), height, width),
+        "steep_and_shallow": (fixed([
+            [0, 0.075 * w, 0.98 * h, 0.09 * w], [0.96 * h, 0.28 * w, 0.02 * h, 0.2525 * w],
+            [0.125 * h, 0.025 * w, 0.146 * h, 0.95 * w], [0.425 * h, 0.975 * w, 0.454 * h, 0.0125 * w],
+            [0.04 * h, -4, 0.92 * h, w + 4], [0.529 * h, 0.05 * w, 0.5295 * h, 0.925 * w]]),
+            height, width),
+        "outside_rows": (np.concatenate([
+            rand(8, (-1.25 * h, -0.25), (0, w)), rand(8, (h + 0.25, 2.25 * h), (0, w)),
+            rand(8, (-0.4 * h, 1.4 * h), (0, w))]), height, width),
+        "horizontal_and_padding": (np.concatenate([
+            rand(10, (0, h), (0, w)), np.zeros((7, 4), np.float32),
+            fixed([[0.2 * h, 1, 0.2 * h, 0.75 * w], [round(0.48 * h) + 0.5, 0.75 * w,
+                                                     round(0.48 * h) + 0.5, 2],
+                   [0, 0, 0, 0.22 * w]])]), height, width),
+        "dense_random": (rand(96, (-4, h + 4), (-4, w + 6)), height, width),
+        "empty": (np.zeros((0, 4), np.float32), 6, 9),
+        "one_pixel": (fixed([[0.2, 0.1, 0.9, 0.7], [0.9, 0.7, 0.4, -0.3], [-1, -1, 2, 2]]), 1, 1),
+        "one_row": (rand(16, (-1, 2), (-3, 53)), 1, 50),
+        "one_column": (rand(16, (-3, 43), (-30, 30)), 40, 1),
+        "beyond_one_segment": (np.concatenate([
+            rand(24, (-1, 6), (-20, wide + 20)),
+            fixed([[0.5, 255.5, 4.5, 256.5], [4.2, 511.9, 0.1, 512.1], [1, 5, 1.5, wide - 5],
+                   [3.9, wide - 1, 3.1, -2], [0, 256, 5, 256]])]), 5, wide),
+    }
+    return cases
+
+
 # ----------------------------------------------------------------------------
 # helpers
 # ----------------------------------------------------------------------------
@@ -761,12 +844,38 @@ def _chunk_bound(chunks, t: int) -> dict:
     return _bound(nbytes, ops)
 
 
-def _winding_bound(calls) -> dict:
+def _scanline_ops(edges, height: int, width: int) -> int:
+    """FP32 operations of the scanline winding (csrc/winding.cu) of edges
+    (S, 4) at height x width: ROW_OPS for each live (edge, row) pair in
+    [0, height), PAIR_OPS for each partial cell [floor(xmin), ceil(xmax))
+    of the pair inside [0, width), and SCAN_OPS per pixel."""
+    import torch
+
+    a0, a1, b0, b1 = edges.reshape(-1, 4).unbind(-1)
+    y_lo, y_hi = torch.minimum(a0, b0), torch.maximum(a0, b0)
+    x_lo, x_hi = torch.where(a0 <= b0, a1, b1), torch.where(a0 <= b0, b1, a1)
+    dy = y_hi - y_lo
+    slope = (x_hi - x_lo) / torch.where(dy > 0, dy, torch.ones_like(dy))
+    r0 = torch.clamp(torch.floor(y_lo), 0, height).long()
+    n = torch.where(a0 != b0, (torch.clamp(torch.ceil(y_hi), 0, height).long() - r0)
+                    .clamp(min=0), 0)
+    e = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n)
+    row = (r0[e] + torch.arange(e.numel(), device=n.device)
+           - torch.repeat_interleave(torch.cumsum(n, 0) - n, n)).float()
+    xs0 = x_lo[e] + slope[e] * (torch.maximum(y_lo[e], row) - y_lo[e])
+    xs1 = x_lo[e] + slope[e] * (torch.minimum(y_hi[e], row + 1) - y_lo[e])
+    cells = (torch.clamp(torch.ceil(torch.maximum(xs0, xs1)), 0, width)
+             - torch.clamp(torch.floor(torch.minimum(xs0, xs1)), 0, width))
+    return e.numel() * ROW_OPS + int(cells.sum()) * PAIR_OPS + SCAN_OPS * height * width
+
+
+def _winding_bound(calls, count=_scanline_ops) -> dict:
     """Bound of whole-image winding launches: the live edges of each list
-    read once and each field written once, against _winding_ops."""
+    read once and each field written once, against count's operations:
+    _scanline_ops, the work the kernel does, or _winding_ops, the dense
+    per-pixel closed form of the TPU kernel, for comparison with it."""
     nbytes = sum(_live_edges(lines) * 16 + h * w * 4 for lines, h, w in calls)
-    ops = sum(_winding_ops(lines, h, w) for lines, h, w in calls)
-    return _bound(nbytes, ops)
+    return _bound(nbytes, sum(count(lines, h, w) for lines, h, w in calls))
 
 
 def _ptxas_report(log: str) -> list:
@@ -1932,7 +2041,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if fused_exec.winding.launches != before + 1:
             raise RuntimeError("winding_batch made more than one launch")
-        if not all(torch.equal(a, b) for a, b in zip(batched, per_mask, strict=True)):
+        if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(batched, per_mask, strict=True)):
             raise RuntimeError("batched winding fields differ from the per-mask kernel's")
 
         def all_masks(fn):
@@ -1954,15 +2063,17 @@ def main() -> int:
         edges = sorted(lines.shape[0] for lines, _h, _w in calls)
         results["winding"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                   **_winding_bound(calls), library_ms=None)
+        dense = _winding_bound(calls, _winding_ops)
         _say("winding", (
             f"{len(calls)} masks of one interpreter render (pixels median"
             f" {sizes[len(sizes) // 2]}, max {sizes[-1]}; edges median"
             f" {edges[len(edges) // 2]}, max {edges[-1]}): max abs diff {worst:.3g};"
-            f" batched fields == per-mask fields; one batched launch {ms:.4f} ms"
+            f" batched fields == per-mask fields bit for bit; one batched launch {ms:.4f} ms"
             f" ({dev_ms:.4f} ms with the host ahead; with packing and upload"
             f" {call_ms:.4f} ms), one launch per mask {loop_ms:.4f} ms ({loop_dev_ms:.4f}"
             f" ms with the host ahead), plain {plain_ms:.4f} ms, bound"
-            f" {results['winding']['bound_ms']:.6f} ms ({results['winding']['bound_by']});"
+            f" {results['winding']['bound_ms']:.6f} ms ({results['winding']['bound_by']};"
+            f" dense closed form {dense['bound_ms']:.6f} ms, {dense['bound_by']});"
             f" the render made {len(rec_batch.calls)} winding_batch and"
             f" {len(rec_one.calls)} winding calls, {render_launches} launches"
         ))
@@ -1979,13 +2090,65 @@ def main() -> int:
             if not bool(torch.isfinite(got).all()) or not err <= WINDING_TOL:
                 raise RuntimeError(f"winding kernel disagrees at S={segs}: {err}")
             results["winding"]["max_abs_err"] = max(results["winding"]["max_abs_err"], err)
+            if not torch.equal(_bits(fused_exec.winding(lines, hh, ww)), _bits(got)):
+                raise RuntimeError(f"two winding calls at S={segs} differ")
             k_ms = _time_ms(torch, lambda: fused_exec.winding(lines, hh, ww), 10)
+            k_dev_ms = _device_ms(torch, lambda: fused_exec.winding(lines, hh, ww), 10)
             p_ms = _time_ms(torch, lambda: coverage.winding(lines, hh, ww), 2)
             b = _winding_bound([(lines, hh, ww)])
+            dense = _winding_bound([(lines, hh, ww)], _winding_ops)
             _say("winding", (
-                f"random S={segs} {hh}x{ww}: max abs diff {err:.3g}; kernel {k_ms:.4f} ms,"
-                f" plain {p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+                f"random S={segs} {hh}x{ww}: max abs diff {err:.3g}, repeat bit-equal; kernel"
+                f" {k_ms:.4f} ms ({k_dev_ms:.4f} ms with the host ahead), plain {p_ms:.4f} ms,"
+                f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}; dense closed form"
+                f" {dense['bound_ms']:.4f} ms, {dense['bound_by']})"
             ))
+
+        # the adversarial lists of tests/test_torch_winding.py at
+        # WINDING_CASES^2, one mask WINDING_WIDE wide: each against plain,
+        # repeated calls bit-equal, all of them in one batch equal to the
+        # one-list fields; then back-to-back batches of other masks through
+        # the pinned staging buffer, which must not grow again
+        cases = winding_cases(WINDING_CASES, WINDING_CASES, WINDING_WIDE)
+        case_calls, case_fields, case_worst = [], [], 0.0
+        for name, (e, hh, ww) in cases.items():
+            lines = torch.from_numpy(e).to(dev)
+            got = fused_exec.winding(lines, hh, ww)
+            again = fused_exec.winding(lines, hh, ww)
+            ref = coverage.winding(lines, hh, ww)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max()) if got.numel() else 0.0
+            if not bool(torch.isfinite(got).all()) or not err <= WINDING_TOL:
+                raise RuntimeError(f"winding kernel disagrees on {name}: {err}")
+            if not torch.equal(_bits(got), _bits(again)):
+                raise RuntimeError(f"two winding calls on {name} differ")
+            case_worst = max(case_worst, err)
+            case_calls.append((lines, hh, ww))
+            case_fields.append(got)
+        results["winding"]["max_abs_err"] = max(results["winding"]["max_abs_err"], case_worst)
+        case_lists = [cases[n][0] for n in cases]
+        case_shapes = [cases[n][1:] for n in cases]
+        staging = []
+        for _ in range(2):  # back to back, no synchronize between the batches
+            first = fused_exec.winding_batch(case_lists, case_shapes, dev)
+            second = fused_exec.winding_batch(host_lists, shapes, dev)
+            staging.append(fused_exec._staging[dev][0].data_ptr())
+            torch.cuda.synchronize()
+            for fields, ref in ((first, case_fields), (second, per_mask)):
+                if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(fields, ref, strict=True)):
+                    raise RuntimeError("back-to-back winding batches differ from the one-list fields")
+        if staging[0] != staging[1]:
+            raise RuntimeError("upload_winding_batch allocated a new staging buffer")
+        c_ms = _time_ms(torch, lambda: [fused_exec.winding(*c) for c in case_calls], 5)
+        b = _winding_bound(case_calls)
+        dense = _winding_bound(case_calls, _winding_ops)
+        _say("winding", (
+            f"{len(cases)} adversarial lists ({', '.join(cases)}) at {WINDING_CASES}^2, one"
+            f" {WINDING_WIDE} wide: max abs diff {case_worst:.3g}; repeated calls bit-equal;"
+            f" one batch == one-list fields bit for bit; two back-to-back batch pairs correct,"
+            f" staging buffer reused; all lists {c_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
+            f" ({b['bound_by']}; dense closed form {dense['bound_ms']:.4f} ms, {dense['bound_by']})"
+        ))
 
         # 14. pattern paints and images, which lower whole: the scene kernel
         # with pattern items against plain, the CLI and serving (main paths)
@@ -2218,16 +2381,32 @@ def main() -> int:
         err = float((got - ref).abs().max())
         if not bool(torch.isfinite(got).all()) or not err <= WINDING_TOL:
             raise RuntimeError(f"fill_batch disagrees with plain: {err}")
+        # a repeated call: the same bits, and the batch table from the cache
+        # (no host-to-device copy)
+        hits = fused_exec._uniform_batch.cache_info().hits
+        again = pbatch.fill_batch(lines_d, colors_d, FILL_SIZE, FILL_SIZE, device=dev)
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(again), _bits(got)):
+            raise RuntimeError("two fill_batch calls differ")
+        if fused_exec._uniform_batch.cache_info().hits != hits + 1:
+            raise RuntimeError("winding_uniform built its batch table again")
         ms = _time_ms(torch, lambda: pbatch.fill_batch(lines_d, colors_d, FILL_SIZE, FILL_SIZE,
                                                        device=dev), 20)
+        k_ms = _time_ms(torch, lambda: fused_exec.winding_uniform(lines_d, FILL_SIZE, FILL_SIZE), 20)
+        k_dev_ms = _device_ms(torch, lambda: fused_exec.winding_uniform(lines_d, FILL_SIZE,
+                                                                        FILL_SIZE), 20)
         plain_ms = _time_ms(torch, plain_fill, 2)
         mpx = FILL_PATHS * FILL_SIZE * FILL_SIZE / 1e6
-        b = _winding_bound([(e, FILL_SIZE, FILL_SIZE) for e in lines_d])
+        fill_calls = [(e, FILL_SIZE, FILL_SIZE) for e in lines_d]
+        b = _winding_bound(fill_calls)
+        dense = _winding_bound(fill_calls, _winding_ops)
         _say("fill_batch", (
             f"{FILL_PATHS} paths x {FILL_SEGS} edges at {FILL_SIZE}^2: max abs diff vs plain"
-            f" {err:.3g}; {ms:.4f} ms ({mpx / ms * 1e3:.1f} Mpx/s), plain {plain_ms:.4f} ms;"
-            f" winding bound {b['bound_ms']:.4f} ms ({b['bound_by']}); launches"
-            f" {path_launches['fill_batch']}"
+            f" {err:.3g}, repeat bit-equal, table cached; {ms:.4f} ms ({mpx / ms * 1e3:.1f}"
+            f" Mpx/s), plain {plain_ms:.4f} ms; winding kernel (winding_uniform) {k_ms:.4f} ms"
+            f" ({k_dev_ms:.4f} ms with the host ahead), bound {b['bound_ms']:.4f} ms"
+            f" ({b['bound_by']}; dense closed form {dense['bound_ms']:.4f} ms,"
+            f" {dense['bound_by']}); launches {path_launches['fill_batch']}"
         ))
 
         # 21. sprite atlases: 13 documents x 4 (dedup) and 52 distinct ones

@@ -101,7 +101,7 @@ int svgr_winding(const float* edges, int segs, float* out, int height,
 // svgr_winding, so each field equals that function's bit for bit.
 //   edges: (sum segs, 4) f32, each mask's list in its own pixel coordinates;
 //   table: (n_masks, SVGR_WINDING_TABLE_COLS) int32; a mask's blocks are
-//          ceil(width / 128) * ceil(height / 8) (0 for an empty mask), first
+//          ceil(width / 256) * ceil(height / 8) (0 for an empty mask), first
 //          block their exclusive prefix sum, blocks the total;
 //   out:   flat f32, each mask's (height, width) field at its output offset.
 int svgr_winding_batch(const float* edges, const int* table, int n_masks,

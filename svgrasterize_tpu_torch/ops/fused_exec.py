@@ -19,6 +19,7 @@ one launch); both count on `winding.launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections.abc import Sequence
 from typing import NamedTuple
 
@@ -32,9 +33,15 @@ from .batch_exec import MAX_STOPS, N_FPARAMS, N_IPARAMS, SMALL_SEGS, DevicePlan
 KERNEL_TILES = (16, 32, 64)
 # classes one prepass launch takes (csrc/kernels.h SVGR_PREPASS_MAX_CLASSES)
 PREPASS_MAX_CLASSES = 32
-# the whole-image winding kernel's output block (csrc/winding.cu) and the
-# columns of its batch table (SVGR_WINDING_TABLE_COLS)
-WINDING_BLOCK = (8, 128)
+# the whole-image winding kernel's block (csrc/winding.cu, a row scanline): a
+# band of 8 rows, one warp each, by a segment of 256 columns, whose partial
+# cells and carries a warp keeps in shared memory.  Its work is the (edge,
+# row) pairs and the cells they cross, not the pixels: small masks are
+# paced by a block's latency times the waves of blocks, long lists by the
+# instructions of the pairs' deposit steps; narrower segments cost small
+# masks more waves, wider ones give long rows fewer warps.  And the columns
+# of its batch table (SVGR_WINDING_TABLE_COLS)
+WINDING_BLOCK = (8, 256)
 WINDING_TABLE_COLS = 6
 _INT32_MAX = 2**31 - 1
 
@@ -294,7 +301,7 @@ class WindingBatch(NamedTuple):
 
     edges: torch.Tensor  # (sum S_i, 4) f32, the lists back to back
     table: torch.Tensor  # (n, WINDING_TABLE_COLS) int32, csrc/kernels.h
-    sizes: tuple  # (h_i, w_i) per mask
+    sizes: Sequence  # (h_i, w_i) per mask
     offsets: tuple  # each field's offset in the flat output
     pixels: int  # the flat output's length
     blocks: int  # the launch's blocks
@@ -318,36 +325,63 @@ def _mask_table(counts, sizes):
     return table, (int(counts.sum()), int(pixels.sum()), int(blocks.sum()))
 
 
-def upload_winding_batch(edge_lists, sizes, device) -> WindingBatch:
-    """Pack edge lists and their table into one pinned host buffer and
-    upload it with one copy.
+# per CUDA device: upload_winding_batch's grow-only pinned staging buffer and
+# the event recorded after the last copy out of it (None before the first)
+_staging: dict = {}
 
-    edge_lists: per mask an (S_i, 4) f32 array (numpy) in that mask's pixel
-    coordinates; sizes: per mask (h_i, w_i); device: a CUDA device.
+
+def _staging_buffer(device, n: int) -> torch.Tensor:
+    """n f32 of the device's staging buffer, once its last copy is done."""
+    host, done = _staging.get(device, (None, None))
+    if done is not None:
+        done.synchronize()
+    if host is None or host.numel() < n:
+        host = torch.empty(max(n, 2 * (0 if host is None else host.numel())),
+                           dtype=torch.float32, pin_memory=True)
+        _staging[device] = (host, done)
+    return host[:n]
+
+
+def _staging_copied(device) -> None:
+    """Record on the current stream that a copy out of the buffer is queued."""
+    host, done = _staging[device]
+    if done is None:
+        done = torch.cuda.Event()
+        _staging[device] = (host, done)
+    done.record(torch.cuda.current_stream(device))
+
+
+def upload_winding_batch(edge_lists, sizes, device) -> WindingBatch:
+    """Pack edge lists and their table into the device's pinned staging
+    buffer and upload it with one copy.
+
+    edge_lists: per mask an (S_i, 4) float array (numpy) in that mask's
+    pixel coordinates; sizes: per mask (h_i, w_i); device: a CUDA device.
     """
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"upload_winding_batch: {device} is not a CUDA device")
-    sizes = tuple((int(h), int(w)) for h, w in sizes)
-    if len(edge_lists) != len(sizes):
+    hw = np.array(sizes, np.int64).reshape(-1, 2)
+    if len(edge_lists) != len(hw):
         raise ValueError("upload_winding_batch: one size per edge list")
-    if any(h < 0 or w < 0 for h, w in sizes):
-        raise ValueError(f"upload_winding_batch: bad sizes {sizes}")
-    lists = [np.asarray(e, np.float32).reshape(-1, 4) for e in edge_lists]
-    table, (segs, pixels, blocks) = _mask_table([e.shape[0] for e in lists], sizes)
+    if (hw < 0).any():
+        raise ValueError(f"upload_winding_batch: bad sizes {hw.tolist()}")
+    table, (segs, pixels, blocks) = _mask_table([len(e) for e in edge_lists], hw)
     n_edge = 4 * segs
     if max(pixels, blocks, n_edge) > _INT32_MAX:
         raise ValueError("upload_winding_batch: the batch exceeds 32-bit offsets")
-    host = torch.empty(n_edge + table.size, dtype=torch.float32, pin_memory=True)
+    host = _staging_buffer(device, n_edge + table.size)
     buf = host.numpy()
     if n_edge:
-        np.concatenate(lists, axis=0, out=buf[:n_edge].reshape(-1, 4))
+        np.concatenate(edge_lists, axis=0, out=buf[:n_edge].reshape(-1, 4),
+                       casting="same_kind")
     buf[n_edge:].view(np.int32)[:] = table.reshape(-1)
     dev_buf = host.to(device, non_blocking=True)
+    _staging_copied(device)
     return WindingBatch(
         edges=dev_buf[:n_edge].view(-1, 4),
         table=dev_buf[n_edge:].view(torch.int32).view(-1, WINDING_TABLE_COLS),
-        sizes=sizes, offsets=tuple(int(o) for o in table[:, 4]),
+        sizes=hw.tolist(), offsets=tuple(table[:, 4].tolist()),
         pixels=pixels, blocks=blocks,
     )
 
@@ -408,8 +442,9 @@ def winding_uniform(lines, height: int, width: int):
     f32 of one size, in image pixel coordinates (zero rows are padding).
 
     On a CUDA device the lists are already there: one launch of the winding
-    kernel computes every field (the batch table is the only upload).  On
-    the CPU: the plain version, coverage.winding per list."""
+    kernel computes every field; the batch table is uploaded once per
+    shape and device (_uniform_batch) and reused.  On the CPU: the plain
+    version, coverage.winding per list."""
     device = lines.device
     height, width = int(height), int(width)
     if not _kernel_device(device, "winding_uniform"):
@@ -417,16 +452,22 @@ def winding_uniform(lines, height: int, width: int):
             if lines.shape[0] else lines.new_zeros((0, height, width))
     _check(lines, "lines", torch.float32, (None, None, 4), device)
     n, segs, _ = lines.shape
+    batch = _uniform_batch(n, segs, height, width, device)._replace(edges=lines.view(-1, 4))
+    return launch_winding_batch(batch).out.view(n, height, width)
+
+
+@functools.lru_cache(maxsize=64)
+def _uniform_batch(n: int, segs: int, height: int, width: int, device) -> WindingBatch:
+    """The WindingBatch of n lists of segs edges at height x width on device,
+    its edges left empty; cached, so a repeated shape copies nothing."""
     table, (_segs, pixels, blocks) = _mask_table([segs] * n, [(height, width)] * n)
     if max(pixels, blocks, 4 * n * segs) > _INT32_MAX:
         raise ValueError("winding_uniform: the batch exceeds 32-bit offsets")
-    batch = WindingBatch(
-        edges=lines.view(-1, 4),
-        table=torch.from_numpy(table.astype(np.int32)).to(device),
-        sizes=((height, width),) * n, offsets=tuple(int(o) for o in table[:, 4]),
+    return WindingBatch(
+        edges=None, table=torch.from_numpy(table.astype(np.int32)).to(device),
+        sizes=((height, width),) * n, offsets=tuple(table[:, 4].tolist()),
         pixels=pixels, blocks=blocks,
     )
-    return launch_winding_batch(batch).out.view(n, height, width)
 
 
 KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding)

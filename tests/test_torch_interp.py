@@ -326,7 +326,7 @@ def test_winding_batch_matches_per_mask_and_jax():
     assert table[:, 2:4].tolist() == [list(s) for s in sizes]
     assert table[:, 4].tolist() == np.cumsum([0] + [h * w for h, w in sizes])[:-1].tolist()
     assert table[:, 5].tolist() == np.cumsum([0] + blocks)[:-1].tolist()
-    assert blocks[3] == blocks[4] == 0 and blocks[5] == 17 * 2
+    assert blocks[3] == blocks[4] == 0 and blocks[5] == 17 * 1
 
 
 @pytest.mark.parametrize("rule", ["nonzero", "evenodd"])
