@@ -17,7 +17,7 @@ on one interpreter render's masks, one launch per mask and all of them in
 one batched launch, which must agree bit for bit, on random lists up to
 2,048 edges at 1024 x 1024 and on the adversarial lists of
 tests/test_torch_winding.py at 1024 x 1024 and 4096 wide, repeated calls
-bit-equal and back-to-back batches through the pinned staging buffer),
+bit-equal and back-to-back batches through the pinned staging buffers),
 then drives the port's main paths: the
 CLI renders a generated pass-free 1,536-draw document at 1488 x 1488 and a
 compiled scene of it serves 5 frames at 3840 x 3840; the CLI renders a
@@ -2108,7 +2108,7 @@ def main() -> int:
         # WINDING_CASES^2, one mask WINDING_WIDE wide: each against plain,
         # repeated calls bit-equal, all of them in one batch equal to the
         # one-list fields; then back-to-back batches of other masks through
-        # the pinned staging buffer, which must not grow again
+        # the two pinned staging buffers, which must not grow again
         cases = winding_cases(WINDING_CASES, WINDING_CASES, WINDING_WIDE)
         case_calls, case_fields, case_worst = [], [], 0.0
         for name, (e, hh, ww) in cases.items():
@@ -2132,13 +2132,13 @@ def main() -> int:
         for _ in range(2):  # back to back, no synchronize between the batches
             first = fused_exec.winding_batch(case_lists, case_shapes, dev)
             second = fused_exec.winding_batch(host_lists, shapes, dev)
-            staging.append(fused_exec._staging[dev][0].data_ptr())
+            staging.append([h.data_ptr() for h in fused_exec._staging[dev].hosts])
             torch.cuda.synchronize()
             for fields, ref in ((first, case_fields), (second, per_mask)):
                 if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(fields, ref, strict=True)):
                     raise RuntimeError("back-to-back winding batches differ from the one-list fields")
         if staging[0] != staging[1]:
-            raise RuntimeError("upload_winding_batch allocated a new staging buffer")
+            raise RuntimeError("upload_winding_batch allocated new staging buffers")
         c_ms = _time_ms(torch, lambda: [fused_exec.winding(*c) for c in case_calls], 5)
         b = _winding_bound(case_calls)
         dense = _winding_bound(case_calls, _winding_ops)
@@ -2146,7 +2146,7 @@ def main() -> int:
             f"{len(cases)} adversarial lists ({', '.join(cases)}) at {WINDING_CASES}^2, one"
             f" {WINDING_WIDE} wide: max abs diff {case_worst:.3g}; repeated calls bit-equal;"
             f" one batch == one-list fields bit for bit; two back-to-back batch pairs correct,"
-            f" staging buffer reused; all lists {c_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
+            f" staging buffers reused; all lists {c_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
             f" ({b['bound_by']}; dense closed form {dense['bound_ms']:.4f} ms, {dense['bound_by']})"
         ))
 

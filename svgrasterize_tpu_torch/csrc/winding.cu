@@ -34,10 +34,8 @@
 // bit.  The block stages the mask's edges through shared memory in chunks
 // of 256 (edge_params once per edge), dropping padding and horizontal
 // edges, edges that miss the band's rows and edges right of the segment by
-// more than a pixel; edges left of it by more than a pixel go to a second
-// list, whose pairs only add sign * dy to the row base (on long lists most
-// pairs of a right-hand segment are such); survivors keep their order while
-// the next chunk's edges load.  Warp w owns row r0 + w and a shared-memory
+// more than a pixel; survivors keep their order while the next chunk's
+// edges load.  Warp w owns row r0 + w and a shared-memory
 // row of partial sums and one of carries.  Its lanes take the survivors 32
 // at a time, one (edge, row) pair each: the lane clips the edge to the slab
 // once (lo, hi, dy, xs0, xs1) and classifies it against the segment
@@ -81,11 +79,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // blocks an SM keeps resident (at most 48 registers a thread): small masks
 // are paced by each block's latency times the waves of blocks
 constexpr int kMinBlocks = 5;
-
-// a staged edge that lies wholly left of the block's segment
-struct LeftEdge {
-  float sign, y_lo, y_hi;
-};
 
 // one row of the batch table (SVGR_WINDING_TABLE_COLS int32 columns)
 struct MaskEntry {
@@ -135,8 +128,7 @@ winding_kernel(const float4* __restrict__ edges,
                const int* __restrict__ table, int n_masks, MaskEntry m,
                float* __restrict__ out) {
   __shared__ EdgeParams s_edges[kChunk];
-  __shared__ LeftEdge s_left[kChunk];
-  __shared__ int s_count[2][kRows];
+  __shared__ int s_count[kRows];
   __shared__ __align__(16) float s_part[kRows][kSeg];
   __shared__ __align__(16) float s_carry[kRows][kSeg];
 
@@ -170,10 +162,8 @@ winding_kernel(const float4* __restrict__ edges,
   const float band_lo = (float)r0;
   const float band_hi = (float)min(r0 + kRows, height);
   // an edge whose every point lies at column >= c1 + 1 has floor(xmin) >= c1
-  // on every row: nothing in the segment; one whose every point lies at
-  // column <= c0 - 1 has ceil(xmax) <= c0 on every row: wholly left
+  // on every row: nothing in the segment
   const float right = c1f + 1.f;
-  const float left = c0f - 1.f;
 
   {
     float4* part4 = reinterpret_cast<float4*>(&s_part[0][0]);
@@ -186,53 +176,33 @@ winding_kernel(const float4* __restrict__ edges,
   }
   float* const part = s_part[warp];
   float* const carry = s_carry[warp];
-  double base = 0.0;  // this lane's wholly-left pairs of the row
+  double base = 0.0;  // this lane's pairs wholly left of the segment
 
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (tid < segs) v = mask_edges[tid];
   for (int e0 = 0; e0 < segs; e0 += kChunk) {
     EdgeParams e;
-    bool keep = false, wholly_left = false;
+    bool keep = false;
     if (e0 + tid < segs) {
       e = edge_params(v.x, v.y, v.z, v.w);
       keep = e.sign != 0.f && e.y_hi > band_lo && e.y_lo < band_hi &&
              fminf(v.y, v.w) < right;
-      wholly_left = keep && fmaxf(v.y, v.w) <= left;
-      keep = keep && !wholly_left;
     }
     // the next chunk's edge loads while this one is processed
     if (e0 + kChunk + tid < segs) v = mask_edges[e0 + kChunk + tid];
     const unsigned ballot = __ballot_sync(kFull, keep);
-    const unsigned ballot_left = __ballot_sync(kFull, wholly_left);
-    if (lane == 0) {
-      s_count[0][warp] = __popc(ballot);
-      s_count[1][warp] = __popc(ballot_left);
-    }
+    if (lane == 0) s_count[warp] = __popc(ballot);
     __syncthreads();
-    int first_slot = 0, total = 0, left_slot = 0, total_left = 0;
+    int first_slot = 0, total = 0;
 #pragma unroll
     for (int w = 0; w < kRows; ++w) {
-      first_slot += w < warp ? s_count[0][w] : 0;
-      total += s_count[0][w];
-      left_slot += w < warp ? s_count[1][w] : 0;
-      total_left += s_count[1][w];
+      first_slot += w < warp ? s_count[w] : 0;
+      total += s_count[w];
     }
-    const unsigned below = (1u << lane) - 1u;
-    if (keep) s_edges[first_slot + __popc(ballot & below)] = e;
-    if (wholly_left) {
-      s_left[left_slot + __popc(ballot_left & below)] = LeftEdge{e.sign, e.y_lo, e.y_hi};
-    }
+    if (keep) s_edges[first_slot + __popc(ballot & ((1u << lane) - 1u))] = e;
     __syncthreads();
 
     if (row < height) {
-      // edges wholly left of the segment: each pair only adds sign * dy
-      for (int k = lane; k < total_left; k += 32) {
-        const LeftEdge p = s_left[k];
-        if (p.y_hi > rowf && p.y_lo < rowf + 1.f) {
-          const float dy = fmaxf(fminf(p.y_hi, rowf + 1.f) - fmaxf(p.y_lo, rowf), 0.f);
-          base += (double)(p.sign * dy);
-        }
-      }
       for (int k0 = 0; k0 < total; k0 += 32) {
         // this lane's (edge, row) pair: clip once, classify
         float k = 0.f, xs0 = 0.f, xs1 = 0.f;

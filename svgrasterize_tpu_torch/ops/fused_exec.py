@@ -325,35 +325,36 @@ def _mask_table(counts, sizes):
     return table, (int(counts.sum()), int(pixels.sum()), int(blocks.sum()))
 
 
-# per CUDA device: upload_winding_batch's grow-only pinned staging buffer and
-# the event recorded after the last copy out of it (None before the first)
-_staging: dict = {}
+class _Staging:
+    """upload_winding_batch's pinned host memory for one CUDA device: two
+    grow-only buffers taken in turn, each guarded by an event recorded after
+    the copy out of it.  A batch is packed while the previous batch's copy
+    may still run; the host waits only for a copy two batches back."""
+
+    def __init__(self):
+        self.hosts = [None, None]
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self.turn = 0
+
+    def take(self, n: int):
+        """n f32 of the next buffer once its last copy is done, and the event
+        to record after the copy out of it."""
+        i, self.turn = self.turn, self.turn ^ 1
+        self.copied[i].synchronize()  # at once unless that copy is still queued
+        host = self.hosts[i]
+        if host is None or host.numel() < n:
+            host = self.hosts[i] = torch.empty(
+                max(n, 2 * (0 if host is None else host.numel())), dtype=torch.float32,
+                pin_memory=True)
+        return host[:n], self.copied[i]
 
 
-def _staging_buffer(device, n: int) -> torch.Tensor:
-    """n f32 of the device's staging buffer, once its last copy is done."""
-    host, done = _staging.get(device, (None, None))
-    if done is not None:
-        done.synchronize()
-    if host is None or host.numel() < n:
-        host = torch.empty(max(n, 2 * (0 if host is None else host.numel())),
-                           dtype=torch.float32, pin_memory=True)
-        _staging[device] = (host, done)
-    return host[:n]
-
-
-def _staging_copied(device) -> None:
-    """Record on the current stream that a copy out of the buffer is queued."""
-    host, done = _staging[device]
-    if done is None:
-        done = torch.cuda.Event()
-        _staging[device] = (host, done)
-    done.record(torch.cuda.current_stream(device))
+_staging: dict = {}  # CUDA device -> _Staging
 
 
 def upload_winding_batch(edge_lists, sizes, device) -> WindingBatch:
-    """Pack edge lists and their table into the device's pinned staging
-    buffer and upload it with one copy.
+    """Pack edge lists and their table into one of the device's pinned
+    staging buffers and upload it with one copy.
 
     edge_lists: per mask an (S_i, 4) float array (numpy) in that mask's
     pixel coordinates; sizes: per mask (h_i, w_i); device: a CUDA device.
@@ -370,14 +371,16 @@ def upload_winding_batch(edge_lists, sizes, device) -> WindingBatch:
     n_edge = 4 * segs
     if max(pixels, blocks, n_edge) > _INT32_MAX:
         raise ValueError("upload_winding_batch: the batch exceeds 32-bit offsets")
-    host = _staging_buffer(device, n_edge + table.size)
+    if device not in _staging:
+        _staging[device] = _Staging()
+    host, copied = _staging[device].take(n_edge + table.size)
     buf = host.numpy()
     if n_edge:
         np.concatenate(edge_lists, axis=0, out=buf[:n_edge].reshape(-1, 4),
                        casting="same_kind")
     buf[n_edge:].view(np.int32)[:] = table.reshape(-1)
     dev_buf = host.to(device, non_blocking=True)
-    _staging_copied(device)
+    copied.record(torch.cuda.current_stream(device))
     return WindingBatch(
         edges=dev_buf[:n_edge].view(-1, 4),
         table=dev_buf[n_edge:].view(torch.int32).view(-1, WINDING_TABLE_COLS),
