@@ -10,9 +10,10 @@ It builds the five hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
 with nvcc (one process per source, in parallel) and prints each compiled
 kernel's registers and spills, holds each against its plain PyTorch version
 on the card (the prepass on random multi-class calls, one launch each; the
-scene kernel on random plans reaching every item kind at T = 16, 32 and 64;
-the blur-chunk kernel on a document level's chunks and on random chunks,
-each alone and packed into one level, one launch each; the winding kernel
+scene kernel on random plans reaching every item kind at T = 16, 32, 64 and
+128; the blur-chunk kernel on a document level's chunks and on random
+chunks at every tile, each alone and packed into one level, one launch
+each; the winding kernel
 on one interpreter render's masks, one launch per mask and all of them in
 one batched launch, which must agree bit for bit, on random lists up to
 2,048 edges at 1024 x 1024 and on the adversarial lists of
@@ -31,8 +32,11 @@ one group of it alone with -id.  Then the serving and scale-out slice:
 the four serving documents by CUDA-graph replay
 (CompiledScene.render_tiles_many: the captured frame launches what an
 eager frame launches and the replayed frame equals it bit for bit), replay
-ms/frame of the flat and pass documents at T = 16, 32 and 64, both
-documents over a mesh of four shards on the card (within 1e-5 of one
+ms/frame of the flat and pass documents at T = 16, 32, 64 and 128, the
+pass document at T = 128 against its CPU render (its blur level and pool
+rows at 128 against plain), the JAX package's 8K serving configuration
+(the flat document at 7680 x 7680, T = 128) by graph replay against eager
+and the plain executor, both documents over a mesh of four shards on the card (within 1e-5 of one
 device), a fill batch through the winding kernel, sprite atlases of 13
 documents x 4 (rendered once each) and of 52 distinct ones (within 1e-5 of
 the combined plan) and a sharded one.  Then the tools: a specimen sheet of
@@ -72,6 +76,7 @@ SCENE_TOL = 1e-4  # per-pixel sums of the same terms in another order
 BLUR_TOL = 1e-5  # the same band products, summed in another order
 WINDING_TOL = 1e-4  # the prepass's closed form over a whole image, other order
 PNG_TOL = 1  # 8-bit steps: ~1e-6 differences at a .5 boundary flip one step
+CPU_TOL = 1e-5  # a card frame against the same program rendered on the CPU
 
 CLI_SIZE = 1488
 CLI_DRAWS = 1536
@@ -83,6 +88,10 @@ STRESS_SIZE = 1024
 INTERP_DRAWS = 600
 PATTERN_GROUP = "pattern_group"  # the id the [interp_id] render draws
 SERVE_MANY = 50  # frames per timed render_tiles_many call
+# the JAX package's 8K serving configuration (bench.py build_8k): the
+# material-design-sized flat document parsed at 7680 wide, at the tile its
+# _pick_tile takes there (the smallest whose grid has at most 4,096 tiles)
+EIGHT_K_WIDTH, EIGHT_K_TILE = 7680, 128
 SHARDS = 4  # shards of the single-process mesh, all on the one card
 FILL_PATHS, FILL_SEGS, FILL_SIZE = 64, 64, 256  # the fill batch: paths x edges at size^2
 WINDING_CASES, WINDING_WIDE = 1024, 4096  # the winding kernel's adversarial lists
@@ -1110,7 +1119,8 @@ def _culled_edges(plan) -> tuple:
     of its rows) against segs x rows per item, every padded edge at every
     row, as the first design walked them."""
     t = plan.tile
-    rows_per_warp = 64 // t  # csrc/scene.cu Layout: 32 lanes over T / 2 columns
+    # csrc/scene.cu Layout: 32 lanes over T / 2 columns, a whole row at 64, 128
+    rows_per_warp = max(64 // t, 1)
     live = (plan.tile_id < plan.num_tiles) & (plan.iparams[:, 3] < 0)  # I_BIG
     lines = plan.lines[live]
     a0, b0 = lines[..., 0], lines[..., 2]
@@ -1120,6 +1130,127 @@ def _culled_edges(plan) -> tuple:
         kept = (sign & (y_hi > r0) & (y_lo < r0 + rows_per_warp)).sum(1)
         evaluated += int(((kept + 7) // 8 * 8).sum()) * rows_per_warp
     return evaluated, lines.shape[0] * lines.shape[1] * t
+
+
+def _pool_rows_check(torch, prog, canvas) -> dict:
+    """The pool row kernel against plain on a program's pool: rows of a
+    level's canvas and of it reversed, to random pool rows; the pools must
+    be equal.  Returns the kernel's entry (times, bound, the one PyTorch
+    call computing the same function, a yardstick) and the rows written."""
+    from svgrasterize_tpu_torch.ops import batch_exec, fused_exec
+    from svgrasterize_tpu_torch.render_plan import new_pool
+
+    t = canvas.shape[1]
+    src_all = torch.cat([canvas, canvas.flip(0)])
+    g = torch.Generator().manual_seed(3)
+    src_idx = torch.randperm(src_all.shape[0], generator=g)[: prog.pool_rows].to(torch.int32)
+    dst_idx = torch.randperm(prog.pool_rows, generator=g)[: src_idx.shape[0]].to(torch.int32)
+    src_idx, dst_idx = src_idx[: dst_idx.shape[0]].to(canvas.device), dst_idx.to(canvas.device)
+    pool_k, pool_p = new_pool(prog), new_pool(prog)
+    fused_exec.pool_rows(pool_k, src_all, src_idx, dst_idx)
+    batch_exec._pool_rows(pool_p, src_all, src_idx, dst_idx)
+    torch.cuda.synchronize()
+    if not torch.equal(pool_k, pool_p):
+        raise RuntimeError(f"pool row kernel differs from plain at T={t}")
+    ms = _time_ms(torch, lambda: fused_exec.pool_rows(pool_k, src_all, src_idx, dst_idx), 50)
+    dev_ms = _device_ms(torch, lambda: fused_exec.pool_rows(pool_k, src_all, src_idx, dst_idx),
+                        50)
+    plain_ms = _time_ms(torch, lambda: batch_exec._pool_rows(pool_p, src_all, src_idx, dst_idx),
+                        50)
+    pool_l, src_l, dst_l = new_pool(prog), src_idx.long(), dst_idx.long()
+
+    def library():
+        pool_l[dst_l] = src_all[src_l]
+
+    library_ms = _time_ms(torch, library, 50)
+    n = dst_idx.shape[0]
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **_bound(2 * n * t * t * 16, 0),
+                library_ms=library_ms, dev_ms=dev_ms, rows=n, tile=t, pool=prog.pool_rows)
+
+
+def _pool_rows_line(r: dict) -> str:
+    return (f"{r['rows']} rows of T={r['tile']} into a {r['pool']}-row pool: equal;"
+            f" kernel {r['ms']:.4f} ms ({r['dev_ms']:.4f} ms with the host ahead), plain"
+            f" {r['plain_ms']:.4f} ms, pool[dst] = src[idx] {r['library_ms']:.4f} ms, bound"
+            f" {r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+
+def _serve_8k_phase(torch, doc: str, fonts, dev, path_launches: dict) -> None:
+    """The JAX package's 8K serving configuration on the card: the flat
+    document parsed at EIGHT_K_WIDTH wide, lowered at EIGHT_K_TILE, uploaded
+    and served by graph replay (replay == eager bit for bit), an eager frame
+    against the plain executor; compile seconds by step, ms/frame, the
+    kernels with the host ahead beside their bounds, peak device memory."""
+    from svgrasterize_tpu_torch import render_plan
+    from svgrasterize_tpu_torch.core.transform import Transform
+    from svgrasterize_tpu_torch.frontend.svg import scene_from_filepath
+    from svgrasterize_tpu_torch.ops import batch_exec, fused_exec
+
+    swap = Transform().matrix(0, 1, 0, 1, 0, 0)
+    t8 = time.monotonic()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    scene8, _ids, (w8, h8) = scene_from_filepath(doc, None, EIGHT_K_WIDTH, fonts)
+    parse_s = time.monotonic() - t0
+    vp8 = (0, 0, int(h8), int(w8))
+    t0 = time.monotonic()
+    low8 = render_plan.lower_scene(scene8, swap, vp8, False, EIGHT_K_TILE, device=dev)
+    lower_s = time.monotonic() - t0
+    if low8 is None or low8.groups:
+        raise RuntimeError("the 8K document must lower without isolation passes")
+    t0 = time.monotonic()
+    cs8 = render_plan.CompiledScene(low8, vp8, False, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.monotonic() - t0
+    r8 = _serve_many(torch, cs8, "serve_8k", path_launches, 3)
+    if min(r8["launches"]["prepass_winding"], r8["launches"]["scene_tiles"]) == 0:
+        raise RuntimeError(f"the 8K frame missed a kernel: {r8['launches']}")
+    eager8 = cs8.render_tiles()
+    plain8 = cs8.render_tiles(plain=True)
+    torch.cuda.synchronize()
+    grid8 = low8.grid
+    if tuple(eager8.shape) != (grid8[0] * grid8[1], EIGHT_K_TILE, EIGHT_K_TILE, 4) \
+            or grid8[0] * EIGHT_K_TILE < vp8[2] or grid8[1] * EIGHT_K_TILE < vp8[3]:
+        raise RuntimeError(f"8K tiles {tuple(eager8.shape)} do not cover {vp8}")
+    err8 = float((eager8 - plain8).abs().max())
+    if not bool(torch.isfinite(eager8).all()) or not err8 <= SCENE_TOL:
+        raise RuntimeError(f"the 8K frame disagrees with the plain executor: {err8}")
+    if float(eager8[..., 3].max()) <= 0.0:
+        raise RuntimeError("the 8K frame is blank")
+    del plain8, eager8
+    p8 = cs8.plan
+    big8 = fused_exec.prepass_winding(p8.bigs, EIGHT_K_TILE)
+    calls = {
+        "prepass": (lambda: fused_exec.prepass_winding(p8.bigs, EIGHT_K_TILE),
+                    lambda: batch_exec._prepass_winding(p8.bigs, EIGHT_K_TILE),
+                    _prepass_bound(p8.bigs, EIGHT_K_TILE)),
+        "scene": (lambda: fused_exec.scene_tiles(p8, big8),
+                  lambda: batch_exec._scene_tiles(p8, big8), _scene_bound(p8, big8)),
+    }
+    kernel_times = "; ".join(
+        f"{name} {_time_ms(torch, fn, 10):.4f} ms per call ({_device_ms(torch, fn, 10):.4f}"
+        f" with the host ahead), plain {_time_ms(torch, plain, 1):.4f}, bound"
+        f" {b['bound_ms']:.6f} ({b['bound_by']})"
+        for name, (fn, plain, b) in calls.items())
+    evaluated, walked = _culled_edges(p8)
+    peak8 = torch.cuda.max_memory_allocated()
+    mpx8 = vp8[2] * vp8[3] / 1e6
+    _say("serve_8k", (
+        f"flat_doc({CLI_DRAWS}, {CLI_SIZE}) at {vp8[3]}x{vp8[2]} T={EIGHT_K_TILE}:"
+        f" {grid8[0]}x{grid8[1]} tiles, {p8.tile_id.shape[0]} items, big rows"
+        f" {[tuple(b.shape[:2]) for b in p8.bigs]}; compile {parse_s + lower_s + upload_s:.2f}s"
+        f" (parse {parse_s:.2f}, lowering {lower_s:.2f}, upload {upload_s:.2f}); replay"
+        f" {r8['replay_ms']:.4f} ms/frame ({mpx8 / r8['replay_ms'] * 1e3:.1f} Mpx/s), eager"
+        f" {r8['eager_ms']:.4f} ms/frame ({mpx8 / r8['eager_ms'] * 1e3:.1f} Mpx/s); replay"
+        f" == eager bit for bit; eager vs plain max abs diff {err8:.3g}; {kernel_times}; edges"
+        f" evaluated {evaluated} of {walked} ({evaluated / max(walked, 1) * 100:.2f}%);"
+        f" max_memory_allocated {peak8} bytes ({peak8 / 2**30:.3f} GiB; {base} allocated"
+        f" before the phase); launches {r8['launches']}; phase"
+        f" {time.monotonic() - t8:.2f}s"
+    ))
+    del cs8, low8, big8, p8, scene8, calls
+    torch.cuda.empty_cache()
 
 
 def _png_pixels(tiles, lowered, viewport) -> np.ndarray:
@@ -1594,7 +1725,7 @@ def main() -> int:
         # widths, all-padding rows), one launch each, then the plan's classes
         rng = np.random.default_rng(1)
         worst = 0.0
-        for t in (16, 32, 64):
+        for t in fused_exec.KERNEL_TILES:
             t_worst, shapes = 0.0, []
             for _ in range(3):
                 arrays = []
@@ -1663,7 +1794,7 @@ def main() -> int:
         ))
         # random plans reaching every item kind, at every tile size
         rng = np.random.default_rng(5)
-        for t in (16, 32, 64):
+        for t in fused_exec.KERNEL_TILES:
             rplan, rbig, rpool = _random_plan(torch, rng, t, dev)
             kinds = _item_kinds(rplan)
             if len(kinds) < 9:
@@ -1840,7 +1971,7 @@ def main() -> int:
         _say("pass_layers", _pass_breakdown(torch, prog, pool, vp_p))
 
         # 8. blur chunk kernel against plain: the document's level 0 (its
-        # chunks in one launch), then random chunks at T=16, 32 and 64, each
+        # chunks in one launch), then random chunks at every tile size, each
         # alone and packed into one level
         level0 = prog.levels[0]
         canvas0 = fused_exec.execute_items_fused(level0.plan, None)
@@ -1854,7 +1985,7 @@ def main() -> int:
         doc_err = worst = float((got - ref).abs().max())
         rng = np.random.default_rng(2)
         shapes = {}
-        for t in (16, 32, 64):
+        for t in fused_exec.KERNEL_TILES:
             rows_t = _random_canvas(torch, rng, t, 24, dev)
             cks = [_random_chunk(rng, t, 24) for _ in range(4)]
             shapes[t] = [(ck["B"], ck["NSi"], ck["NSj"], ck["NOi"], ck["NOj"]) for ck in cks]
@@ -1895,36 +2026,8 @@ def main() -> int:
         ))
 
         # 9. pool row writer against plain: exact
-        src_all = torch.cat([canvas0, canvas0.flip(0)])
-        n_rows = src_all.shape[0]
-        g = torch.Generator().manual_seed(3)
-        src_idx = torch.randperm(n_rows, generator=g)[: prog.pool_rows].to(torch.int32)
-        dst_idx = torch.randperm(prog.pool_rows, generator=g)[: src_idx.shape[0]].to(torch.int32)
-        src_idx, dst_idx = src_idx[: dst_idx.shape[0]].to(dev), dst_idx.to(dev)
-        pool_k, pool_p = new_pool(prog), new_pool(prog)
-        fused_exec.pool_rows(pool_k, src_all, src_idx, dst_idx)
-        batch_exec._pool_rows(pool_p, src_all, src_idx, dst_idx)
-        torch.cuda.synchronize()
-        if not torch.equal(pool_k, pool_p):
-            raise RuntimeError("pool row kernel differs from plain")
-        ms = _time_ms(torch, lambda: fused_exec.pool_rows(pool_k, src_all, src_idx, dst_idx), 50)
-        plain_ms = _time_ms(torch, lambda: batch_exec._pool_rows(pool_p, src_all, src_idx, dst_idx), 50)
-        # the one PyTorch call that computes the same function (a yardstick)
-        pool_l, src_l, dst_l = new_pool(prog), src_idx.long(), dst_idx.long()
-
-        def library():
-            pool_l[dst_l] = src_all[src_l]
-
-        library_ms = _time_ms(torch, library, 50)
-        n_written = dst_idx.shape[0]
-        results["pool_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                    **_bound(2 * n_written * 32 * 32 * 16, 0),
-                                    library_ms=library_ms)
-        _say("pool_rows", (
-            f"{n_written} rows of T=32 into a {prog.pool_rows}-row pool: equal;"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, pool[dst] = src[idx]"
-            f" {library_ms:.4f} ms"
-        ))
+        results["pool_rows"] = _pool_rows_check(torch, prog, canvas0)
+        _say("pool_rows", _pool_rows_line(results["pool_rows"]))
 
         # 10. CLI, isolation-pass document (a main path)
         fused_exec.reset_launch_counts()
@@ -2311,21 +2414,75 @@ def main() -> int:
         if missed:
             raise RuntimeError(f"no captured frame launched {sorted(missed)}")
 
-        # 18. replay ms/frame by tile size (measured only)
+        # 18. replay ms/frame by tile size (measured only); the pass
+        # document's T=128 scene is kept for 18b
         scene_p, _ids, _size = scene_from_filepath(pdoc, None, None, fonts)
         for label, scene_, vp_, done in (("flat", flat_scene, flat_vp, {64: serve_cs}),
                                          ("pass", scene_p, vp_p, {32: pass_cs})):
             row = []
-            for t in (16, 32, 64):
+            for t in fused_exec.KERNEL_TILES:
                 t0 = time.monotonic()
                 cs_ = done.get(t) or compile_scene(scene_, swap, vp_, tile=t, device=dev)
                 compile_s = time.monotonic() - t0
                 r = _serve_many(torch, cs_, f"serve_tiles_{label}_{t}", path_launches, 2)
                 row.append(f"T={t} {r['replay_ms']:.4f} (eager {r['eager_ms']:.4f},"
                            f" compiled in {compile_s:.2f}s)")
+                if label == "pass" and t == 128:
+                    pass128_cs = cs_
                 del cs_
             torch.cuda.empty_cache()
             _say("serve_tiles", f"{label} {vp_[3]}x{vp_[2]} replay ms/frame: {'; '.join(row)}")
+
+        # 18b. the pass document at T=128 on a real level: the frame against
+        # the same document compiled on the CPU (the plain versions), then
+        # level 0's blur launch and the pool rows at T=128 against plain
+        pass128 = path_launches["serve_tiles_pass_128"]
+        if min(pass128["scene_tiles"], pass128["blur_chunk"], pass128["pool_rows"]) == 0:
+            raise RuntimeError(f"the T=128 pass frame missed a kernel: {pass128}")
+        t0 = time.monotonic()
+        cpu128 = compile_scene(scene_p, swap, vp_p, tile=128, device="cpu")
+        cpu_tiles = cpu128.render_tiles()
+        cpu_s = time.monotonic() - t0
+        got = pass128_cs.render_tiles()
+        torch.cuda.synchronize()
+        err = float((got.cpu() - cpu_tiles).abs().max())
+        if got.shape != cpu_tiles.shape or not bool(torch.isfinite(got).all()) \
+                or not err <= CPU_TOL:
+            raise RuntimeError(f"the T=128 pass frame differs from the CPU's: {err}")
+        prog128 = pass128_cs.program
+        level128 = prog128.levels[0]
+        canvas128 = fused_exec.execute_items_fused(level128.plan, None)
+        blur128 = level128.blur
+        bgot = fused_exec.blur_chunk(canvas128, blur128, 128, False)
+        bref = filter_batch.apply_level(canvas128, blur128, 128, False)
+        torch.cuda.synchronize()
+        berr = float((bgot - bref).abs().max())
+        if not berr <= BLUR_TOL:
+            raise RuntimeError(f"blur chunk kernel disagrees at T=128: {berr}")
+        results["blur_chunk"]["max_abs_err"] = max(results["blur_chunk"]["max_abs_err"], berr)
+
+        def blur128_call():
+            return fused_exec.blur_chunk(canvas128, blur128, 128, False)
+
+        b_ms, b_dev_ms = _time_ms(torch, blur128_call, 20), _device_ms(torch, blur128_call, 20)
+        b_plain_ms = _time_ms(
+            torch, lambda: filter_batch.apply_level(canvas128, blur128, 128, False), 5)
+        bb = _chunk_bound(blur128.chunks, 128)
+        _say("pass_128", (
+            f"passes {CLI_SIZE}^2 T=128: {len(prog128.levels)} levels, pool"
+            f" {prog128.pool_rows} rows, launches {pass128}; frame vs device=cpu max abs diff"
+            f" {err:.3g} (cpu compile + render {cpu_s:.2f}s); level 0's"
+            f" {len(blur128.chunks)} chunks ({blur128.tiles} out tiles) in one launch: max abs"
+            f" diff {berr:.3g}; kernel {b_ms:.4f} ms per call ({b_dev_ms:.4f} ms with the host"
+            f" ahead), plain {b_plain_ms:.4f} ms, bound {bb['bound_ms']:.6f} ms"
+            f" ({bb['bound_by']})"
+        ))
+        _say("pool_rows", _pool_rows_line(_pool_rows_check(torch, prog128, canvas128)))
+        del pass128_cs, cpu128, cpu_tiles, got, canvas128, bgot, bref
+        torch.cuda.empty_cache()
+
+        # 18c. the JAX package's 8K serving configuration (a main path)
+        _serve_8k_phase(torch, doc, fonts, dev, path_launches)
 
         # 19. a single-process mesh of SHARDS shards on the card (main paths)
         from svgrasterize_tpu_torch.parallel.mesh import make_mesh
@@ -2486,9 +2643,10 @@ def main() -> int:
         "pool_rows": ("pool_rows.cu", "svgrasterize_tpu/render_plan.py:2092"),
         "winding": ("winding.cu", "svgrasterize_tpu/ops/pallas_coverage.py:36"),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name=name, route="cuda", source=f"svgrasterize_tpu_torch/csrc/{src}",
-             replaces=replaces, launches=launches[name], **results[name])
+             replaces=replaces, launches=launches[name], **{k: results[name][k] for k in keys})
         for name, (src, replaces) in sources.items()
     ]
     if min(k["launches"] for k in kernels) == 0:

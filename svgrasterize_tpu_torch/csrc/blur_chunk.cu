@@ -35,13 +35,14 @@
 // (its first out tile, sizes, offsets, colorspace), each (part, 16-row
 // block of the out span) of BH and each (part, out-tile column) of BW its
 // band of nonzero columns [lo, hi).  A block is a kRows = 16-row slice of
-// one out tile (T / 16 blocks a tile, so at most 4 px and 2 Z entries per
-// thread); it finds its chunk by binary search over the first out tiles,
-// as winding.cu does, and walks only the band: for each kC-column step of
-// the BW band it accumulates Z = BH[rows, h band] @ X[h band, step] in
-// registers over the kC-row steps of the BH band, staging the BH and
-// converted X tiles in shared memory, then stages Z and adds
-// Z @ BW[tile cols, step]^T into the out rows' registers.  The products
+// one out tile (T / 16 blocks a tile; 256 threads, 512 at T = 128, so at
+// most 4 px and 2 Z entries per thread); it finds its chunk by binary
+// search over the first out tiles, as winding.cu does, and walks only the
+// band: for each kC-column step of the BW band it accumulates
+// Z = BH[rows, h band] @ X[h band, step] in registers over the kC-row
+// steps of the BH band, staging the BH and converted X tiles in shared
+// memory, then stages Z and adds Z @ BW[tile cols, step]^T into the out
+// rows' registers.  The products
 // are plain f32 fused multiply-adds (explicit, whatever -fmad says), as
 // the plain version's matmul runs them; a thread's Z entries share a
 // column and its out pixels a column, so each staged X pixel and BW entry
@@ -55,17 +56,20 @@
 // staged in shared memory first, so a block waits on three dependent
 // loads before its first step and on one a step; pack_level puts the
 // chunks with the longest walks first, so their blocks start first.  A
-// register cap keeps 2 blocks on an SM, and shared memory stays under
-// 48 KB at every T, whatever the span's size.
+// register cap keeps 512 threads on an SM, and static shared memory stays
+// under 48 KB at every T (38,912 bytes at T = 128), whatever the span's
+// size.
 
 #include "kernels.h"
 
 namespace {
 
-constexpr int kThreads = 256;
-
 template <int T>
 struct BlurLayout {
+  // threads a block: 256, and 512 at T = 128, so that a thread holds at
+  // most 4 out pixels and 2 Z entries at every T (256 threads at T = 128
+  // hold 8 pixels and spill under the 128-register cap)
+  static constexpr int kThreads = T == 128 ? 512 : 256;
   static constexpr int kC = T < 32 ? T : 32;       // span rows / columns per step
   static constexpr int kRows = 16;                  // out rows per block
   static constexpr int kSplit = T / kRows;          // blocks per out tile
@@ -74,9 +78,9 @@ struct BlurLayout {
   static constexpr int kBhPer = kRows * kC / kThreads;  // staged per thread
   static constexpr int kXPer = kC * kC / kThreads;
   static constexpr int kBwPer = T * kC / kThreads;
-  // blocks an SM must hold: 2, at most 128 registers a thread (a cap of
-  // 80 spills at T = 32 and 64)
-  static constexpr int kMinBlocks = 2;
+  // blocks an SM must hold: 2 of 256 threads, 1 of 512, at most 128
+  // registers a thread (a cap of 80 spills at T = 32 and 64)
+  static constexpr int kMinBlocks = 512 / kThreads;
 };
 
 __device__ __forceinline__ float to_linear(float x) {
@@ -126,7 +130,7 @@ constexpr int kTableInts = 64 * SVGR_BLUR_TABLE_COLS;
 constexpr int kLutSlots = 64;
 
 template <int T>
-__global__ void __launch_bounds__(kThreads, BlurLayout<T>::kMinBlocks)
+__global__ void __launch_bounds__(BlurLayout<T>::kThreads, BlurLayout<T>::kMinBlocks)
 blur_level_kernel(const float4* __restrict__ canvas, int canvas_rows,
                   const int* __restrict__ lut, const float* __restrict__ bh,
                   const float* __restrict__ bw,
@@ -136,6 +140,7 @@ blur_level_kernel(const float4* __restrict__ canvas, int canvas_rows,
                   const int* __restrict__ table, int n_chunks, int linear_rgb,
                   float4* __restrict__ out) {
   using L = BlurLayout<T>;
+  constexpr int kThreads = L::kThreads;
   constexpr int kC = L::kC;
   constexpr int kRows = L::kRows;
   constexpr int kZ = 4 * kRows * kC;                 // staged Z, channel-planar
@@ -299,7 +304,7 @@ cudaError_t launch(const float* canvas, int rows, const int* lut,
                    cudaStream_t stream) {
   const long long blocks = (long long)tiles * BlurLayout<T>::kSplit;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  blur_level_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  blur_level_kernel<T><<<(unsigned)blocks, BlurLayout<T>::kThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(canvas), rows, lut, bh, bw, src_alpha,
       reinterpret_cast<const int2*>(hband), reinterpret_cast<const int2*>(wband),
       table, n_chunks, linear_rgb, reinterpret_cast<float4*>(out));
@@ -329,6 +334,10 @@ extern "C" int svgr_blur_level(const float* canvas, int rows, const int* lut,
       return (int)launch<64>(canvas, rows, lut, bh, bw, src_alpha, hband,
                              wband, table, n_chunks, tiles, linear_rgb, out,
                              stream);
+    case 128:
+      return (int)launch<128>(canvas, rows, lut, bh, bw, src_alpha, hband,
+                              wband, table, n_chunks, tiles, linear_rgb, out,
+                              stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

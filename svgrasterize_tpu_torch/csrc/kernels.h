@@ -61,7 +61,7 @@ extern "C" {
 //   edges[c]: (rows[c], widths[c], 4) f32 tile-local (a0, a1, b0, b1)
 //   out:      (sum rows + 1, tile, tile) f32, the classes' rows in order,
 //             then a zero row
-// tile is 16, 32 or 64; 1 <= n_classes <= SVGR_PREPASS_MAX_CLASSES.
+// tile is 16, 32, 64 or 128; 1 <= n_classes <= SVGR_PREPASS_MAX_CLASSES.
 int svgr_prepass_winding(const float* const* edges, const int* rows,
                          const int* widths, int n_classes, float* out,
                          int tile, cudaStream_t stream);
@@ -77,7 +77,7 @@ int svgr_prepass_winding(const float* const* edges, const int* rows,
 //   (pool rows are read by texture and mask items, atlas tiles by pattern
 //   items).
 //   out: (num_tiles, tile, tile, 4) f32; tiles without items are zero.
-// tile is 16, 32 or 64; segs <= SVGR_MAX_SEGS; k_stops <= SVGR_MAX_STOPS.
+// tile is 16, 32, 64 or 128; segs <= SVGR_MAX_SEGS; k_stops <= SVGR_MAX_STOPS.
 int svgr_scene_tiles(const float* lines, int segs, const float* carry,
                      const int* runs, const int* iparams,
                      const float* fparams, const float* stop_off,
@@ -139,7 +139,7 @@ int svgr_winding_batch(const float* edges, const int* table, int n_masks,
 //   the canvas's colorspace (a chunk whose chain differs converts around
 //   its blur); tiles: the level's out tiles (the last row's OUT + its
 //   B * noi * noj).
-// tile is 16, 32 or 64.
+// tile is 16, 32, 64 or 128.
 int svgr_blur_level(const float* canvas, int rows, const int* lut,
                     const float* bh, const float* bw, const int* src_alpha,
                     const int* hband, const int* wband, const int* table,

@@ -43,7 +43,9 @@ extern "C" int svgr_pool_rows(float* pool, int pool_rows, const float* src,
                               const int* dst_idx, int n, int tile,
                               cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (tile != 16 && tile != 32 && tile != 64) return (int)cudaErrorInvalidValue;
+  if (tile != 16 && tile != 32 && tile != 64 && tile != 128) {
+    return (int)cudaErrorInvalidValue;
+  }
   pool_rows_kernel<<<n, kThreads, 0, stream>>>(
       reinterpret_cast<float4*>(pool), pool_rows,
       reinterpret_cast<const float4*>(src), src_rows, src_idx, dst_idx,

@@ -30,9 +30,9 @@
 // row, band of 8 pixel rows), plus one band set for the zero scratch row,
 // which the kernel writes itself: T / 8 times the blocks of the first
 // design.  One warp per pixel row (at T = 16 a half-warp, two rows per warp,
-// 128 threads), lanes over columns (one per lane at T <= 32, two at T = 64),
-// so every store is a coalesced row segment and each pixel's sum stays in
-// one thread (no atomics).  The block stages its row's edges through shared
+// 128 threads), lanes over columns (one per lane at T <= 32, T / 32 of
+// them 32 apart at T = 64 and 128), so every store is a coalesced row
+// segment and each pixel's sum stays in one thread (no atomics).  The block stages its row's edges through shared
 // memory in chunks of one edge per thread: each thread computes edge_params
 // for its edge, and edges whose [y_lo, y_hi] misses the band (padding and
 // horizontal edges too, sign 0) are dropped with warp ballots and the rest
@@ -213,6 +213,7 @@ extern "C" int svgr_prepass_winding(const float* const* edges, const int* rows,
     case 16: return (int)launch<16>(classes, out, stream);
     case 32: return (int)launch<32>(classes, out, stream);
     case 64: return (int)launch<64>(classes, out, stream);
+    case 128: return (int)launch<128>(classes, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -36,13 +36,14 @@
 // edges, though lowering has cut every edge at the 8-row band boundaries
 // (render_plan._band_split_batch), so most of them miss a pixel's row.
 //
-// Design: the work is units of (tile, band of rows): 4 rows at T = 64,
-// 8 at T = 32, the whole tile at T = 16, each independent (the carry is
-// per row and coverage per pixel), so each output pixel is written once
+// Design: the work is units of (tile, band of rows): 4 rows at T = 64 and
+// 128, 8 at T = 32, the whole tile at T = 16, each independent (the carry
+// is per row and coverage per pixel), so each output pixel is written once
 // and a tile with no items is written as zeros.  Each warp owns 1-4 whole
-// rows, lanes over columns, 2 pixels of one row per thread, under a
-// register cap that keeps at least 24 warps (20 at T < 64) on an SM.  The
-// launch holds as many blocks as the card runs at once, and block b
+// rows, lanes over columns, 2 pixels of one row per thread (4 at T = 128,
+// so that a warp still covers a whole row and culls its edges for it),
+// under a register cap that keeps at least 24 warps (20 at T != 64) on an
+// SM.  The launch holds as many blocks as the card runs at once, and block b
 // renders units b, b + gridDim.x, ...: on the documents served, a tile
 // holds one item (collapsed runs), so a unit's own chain (its run, its
 // parameters, its fields, its store) would be all latency.  A unit's run
@@ -73,21 +74,24 @@ constexpr int kItems = 8;  // items staged per group
 // group past the kept ones (their values are discarded)
 constexpr int kKeptSlots = SVGR_MAX_SEGS + kGroup;
 
-// A thread's kPx = 2 pixels are two columns T / 2 apart of one row, so
-// their edge terms share the row's clip of each edge; a warp covers
-// 32 / (T / 2) rows (1 at T = 64, 2 at 32, 4 at 16).  A block is 4 warps,
-// kBand rows of one tile (4 at T = 64, 8 at 32, the tile at 16): small
-// blocks, so an SM's blocks wait on their loads at different times.
+// A thread's kPx pixels (2, or 4 at T = 128) are columns T / kPx apart of
+// one row, so their edge terms share the row's clip of each edge; a row is
+// T / kPx lanes and a warp covers 32 / (T / kPx) rows (1 at T = 64 and
+// 128, 2 at 32, 4 at 16).  A block is 4 warps, kBand rows of one tile (4
+// at T = 64 and 128, 8 at 32, the tile at 16): small blocks, so an SM's
+// blocks wait on their loads at different times.
 template <int T>
 struct Layout {
-  static constexpr int kPx = 2;
-  static constexpr int kLanesPerRow = T / 2;
+  static constexpr int kPx = T == 128 ? 4 : 2;
+  static constexpr int kLanesPerRow = T / kPx;
   static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
   static constexpr int kWarps = 4;
   static constexpr int kBand = kWarps * kRowsPerWarp;
   static constexpr int kThreads = 32 * kWarps;
   // blocks an SM must hold: 6 at T = 64 (at most 80 registers a thread),
-  // 5 below, where a thread's two pixels need more without spilling
+  // 5 elsewhere (at most 102), where a thread's pixels need more without
+  // spilling (at T = 128 a cap of 80, 6 blocks, spills; 5 blocks ran the
+  // 3840^2 flat plan faster than 4 on an H100)
   static constexpr int kMinBlocks = T == 64 ? 6 : 5;
 };
 
@@ -274,7 +278,7 @@ scene_kernel(const float4* __restrict__ lines, int segs,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  // this thread's pixels' columns col0 + j * T / 2 of each unit's rows
+  // this thread's pixels' columns col0 + j * T / kPx of each unit's rows
   const int col0 = lane % L::kLanesPerRow;
   const int units = num_tiles * kBands;
   const Stage st = stage_layout(segs, k_stops);
@@ -385,7 +389,7 @@ scene_kernel(const float4* __restrict__ lines, int segs,
           for (int k = 0; k < kept; k += kGroup) {
 #pragma unroll
             for (int j = 0; j < L::kPx; ++j) {
-              const float col = (float)(col0 + j * (T / 2));
+              const float col = (float)(col0 + j * L::kLanesPerRow);
               float c[kGroup];
 #pragma unroll
               for (int g = 0; g < kGroup; ++g) {
@@ -402,7 +406,7 @@ scene_kernel(const float4* __restrict__ lines, int segs,
 
 #pragma unroll
         for (int j = 0; j < L::kPx; ++j) {
-          const int col = col0 + j * (T / 2);
+          const int col = col0 + j * L::kLanesPerRow;
           const int px = row * T + col;
           float w = big != nullptr ? big[px] : wind[j];
           w = w + carry_row[row];
@@ -448,7 +452,7 @@ scene_kernel(const float4* __restrict__ lines, int segs,
 
     float4* dst = out + ((size_t)tile * T + row) * T + col0;
 #pragma unroll
-    for (int j = 0; j < L::kPx; ++j) dst[j * (T / 2)] = acc[j];
+    for (int j = 0; j < L::kPx; ++j) dst[j * L::kLanesPerRow] = acc[j];
     first = next_first;
     last = next_last;
   }
@@ -528,6 +532,11 @@ extern "C" int svgr_scene_tiles(const float* lines, int segs,
                              fparams, stop_off, stop_col, k_stops, big_wind,
                              clips, field, pool, patterns, pat_h, pat_w,
                              out, num_tiles, stream);
+    case 128:
+      return (int)launch<128>(lines, segs, carry, runs, iparams,
+                              fparams, stop_off, stop_col, k_stops, big_wind,
+                              clips, field, pool, patterns, pat_h, pat_w,
+                              out, num_tiles, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

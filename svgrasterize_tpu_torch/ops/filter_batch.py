@@ -295,7 +295,7 @@ _INT32_MAX = 2**31 - 1
 # out rows one blur-chunk kernel block computes, and the span columns one
 # step of its walk covers at each tile size (csrc/blur_chunk.cu kRows, kC)
 BLUR_ROWS = 16
-BLUR_STEP = {16: 16, 32: 32, 64: 32}
+BLUR_STEP = {16: 16, 32: 32, 64: 32, 128: 32}
 
 
 def band_tables(ck: dict, t_size: int):

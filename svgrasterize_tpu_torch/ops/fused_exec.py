@@ -30,7 +30,7 @@ from . import batch_exec, coverage, filter_batch
 from .batch_exec import MAX_STOPS, N_FPARAMS, N_IPARAMS, SMALL_SEGS, DevicePlan
 
 # tile sizes the kernels are instantiated for (a template parameter)
-KERNEL_TILES = (16, 32, 64)
+KERNEL_TILES = (16, 32, 64, 128)
 # classes one prepass launch takes (csrc/kernels.h SVGR_PREPASS_MAX_CLASSES)
 PREPASS_MAX_CLASSES = 32
 # the whole-image winding kernel's block (csrc/winding.cu, a row scanline): a

@@ -14,6 +14,9 @@ versions.
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,7 +58,7 @@ def _band_edges(rng, rows: int, width: int, tile: int) -> np.ndarray:
     return out
 
 
-@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("tile", [32, 64, 128])
 def test_prepass_matches_jax(tile, monkeypatch):
     rng = np.random.default_rng(tile)
     classes = [_band_edges(rng, 8, w, tile) for w in (32, 128)]
@@ -87,7 +90,7 @@ def _multiclass(rng, tile: int) -> list:
     return classes
 
 
-@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
 def test_prepass_multiclass_matches_jax(tile, monkeypatch):
     """Several classes in one call (the kernel's one launch per call)."""
     classes = _multiclass(np.random.default_rng(100 + tile), tile)
@@ -122,7 +125,7 @@ def _sequential(per_edge, keep):
     return acc
 
 
-@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
 def test_prepass_band_culling_is_exact(tile):
     """The prepass kernel's culling rule: a band of 8 rows sums only the
     edges whose [y_lo, y_hi] meets it (and a warp only those meeting its
@@ -168,7 +171,7 @@ def _scene_item_edges(rng, tile: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("band", [1, 2, 4, 8])
-@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
 def test_scene_band_culling_is_exact(tile, band):
     """The scene kernel's culling rule: a band of rows (a warp's: 1 row at
     T = 64, 2 at T = 32, 4 at T = 16; or a block's 8) sums only the item's inline
@@ -211,7 +214,7 @@ def _jax_canvas(svg, tile, mode, monkeypatch):
 CASES = [
     ("features", 32, "1"), ("features", 32, "0"), ("features", 64, "0"),
     ("solids", 32, "1"), ("gradients_clips", 32, "1"), ("tile64", 64, "1"),
-    ("flat", 32, "1"), ("flat", 32, "0"),
+    ("flat", 32, "1"), ("flat", 32, "0"), ("gradients_clips", 128, "0"), ("flat", 128, "1"),
 ]
 
 
@@ -266,7 +269,7 @@ def test_default_plan_has_collapse_fields():
     assert (plan.iparams[:, batch_exec.I_FIELD] >= 0).any()
 
 
-@pytest.mark.parametrize("name,tile", [("features", 32), ("flat", 64)])
+@pytest.mark.parametrize("name,tile", [("features", 32), ("flat", 64), ("flat", 128)])
 def test_port_lowering_and_execution_match_jax(name, tile, monkeypatch):
     """The whole port (its own lowering, plan upload and executor wrapper)
     against the JAX package end to end on the CPU."""
@@ -274,3 +277,19 @@ def test_port_lowering_and_execution_match_jax(name, tile, monkeypatch):
     got = execute_lowered(torch_lower(DOCS[name], tile), "cpu").numpy()
     assert np.abs(got - ref).max() <= EXEC_TOL
     assert viewport_of(DOCS[name])[2] <= 128
+
+
+def test_kernel_tiles_are_the_tiles_the_sources_take():
+    """fused_exec.KERNEL_TILES names exactly the tiles csrc/ instantiates:
+    the launch<T> cases of the scene, prepass and blur-chunk kernels, and
+    the tiles the pool-row writer accepts."""
+    csrc = Path(fused_exec.__file__).resolve().parent.parent / "csrc"
+    for name in ("scene.cu", "prepass.cu", "blur_chunk.cu"):
+        src = (csrc / name).read_text()
+        cases = re.findall(r"case (\d+):\s*return \(int\)launch<(\d+)>", src)
+        assert all(a == b for a, b in cases), name
+        assert tuple(int(a) for a, _b in cases) == fused_exec.KERNEL_TILES, name
+    src = (csrc / "pool_rows.cu").read_text()
+    taken = tuple(int(t) for t in re.findall(r"tile != (\d+)", src))
+    assert taken == fused_exec.KERNEL_TILES
+    assert fused_exec.KERNEL_TILES == (16, 32, 64, 128)

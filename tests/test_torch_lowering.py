@@ -145,7 +145,7 @@ def torch_lower(svg: str, tile: int):
     return trp.lower_scene(torch_scene(svg), tr, viewport_of(svg), False, tile, device="cpu")
 
 
-@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("tile", [32, 64, 128])
 @pytest.mark.parametrize("name", sorted(DOCS))
 def test_lowering_bit_identical(name, tile):
     ref = jax_lower(DOCS[name], tile)

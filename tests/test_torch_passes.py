@@ -180,7 +180,7 @@ def _assert_lowered_equal(ref, got):
                 assert np.array_equal(ca[key], cb[key]), key
 
 
-@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("tile", [32, 64, 128])
 @pytest.mark.parametrize("name", sorted(DOCS))
 def test_pass_lowering_bit_identical(name, tile):
     ref = jax_lower(DOCS[name], tile)
@@ -220,6 +220,17 @@ def test_execute_lowered_matches_jax(name, mode, monkeypatch):
     ref = _jax_tiles(DOCS[name], 32, mode, monkeypatch)
     got = trp.execute_lowered(torch_lower(DOCS[name], 32), "cpu").numpy()
     assert got.shape == ref.shape and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= EXEC_TOL
+
+
+@pytest.mark.parametrize("name", ["passes", "blurs"])
+def test_execute_lowered_at_tile_128_matches_jax(name, monkeypatch):
+    """Tile 128 end to end: the port's lowering, its pass levels (blur
+    levels and pool rows at T=128) and executors against the JAX package's
+    XLA executor on its own plan."""
+    ref = _jax_tiles(DOCS[name], 128, "0", monkeypatch)
+    got = trp.execute_lowered(torch_lower(DOCS[name], 128), "cpu").numpy()
+    assert got.shape == ref.shape and got.shape[1] == 128 and np.isfinite(got).all()
     assert np.abs(got - ref).max() <= EXEC_TOL
 
 
@@ -274,9 +285,17 @@ def test_compiled_scene_serves_passes():
 def test_pool_rows_plain_matches_pallas_writer(monkeypatch):
     """The plain pool writer leaves the pool the JAX package's aliased
     Pallas row writer leaves (interpret mode): exactly."""
+    _pool_rows_against_pallas(16, monkeypatch)
+
+
+def test_pool_rows_plain_matches_pallas_writer_at_tile_128(monkeypatch):
+    _pool_rows_against_pallas(128, monkeypatch)
+
+
+def _pool_rows_against_pallas(t: int, monkeypatch):
     monkeypatch.setenv("SVGR_FUSED", "interp")
     rng = np.random.default_rng(3)
-    t, cap, n, lo = 16, 24, 7, 9
+    cap, n, lo = 24, 7, 9
     pool = rng.random((cap, t, t, 4), dtype=np.float32)
     rows = rng.random((n, t, t, 4), dtype=np.float32)
 
@@ -472,7 +491,7 @@ def _assert_bands(ck, tile, rng, walks: int):
         assert np.array_equal(dense.view(np.uint32), banded.view(np.uint32))
 
 
-@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
 @pytest.mark.parametrize("name", CHUNK_DOCS)
 def test_blur_band_tables_on_document_chunks(name, tile):
     rng = np.random.default_rng(tile)
@@ -480,7 +499,7 @@ def test_blur_band_tables_on_document_chunks(name, tile):
         _assert_bands(ck, tile, rng, walks=3)
 
 
-@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
 def test_blur_band_tables_on_random_chunks(tile):
     rng = np.random.default_rng(40 + tile)
     chunks = _random_chunks(rng, tile, 8)
@@ -549,7 +568,7 @@ def _pools(canvas, level, t, linear_rgb, pool_rows):
     return loop, packed
 
 
-@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
 def test_level_packing_of_random_chunks(tile):
     rng = np.random.default_rng(60 + tile)
     chunks = _random_chunks(rng, tile, 8)
