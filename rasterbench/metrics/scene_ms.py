@@ -1,0 +1,7 @@
+"""scene_ms: device ms per frame of the scene kernel."""
+
+from rasterbench.metrics._ops import layer_ms
+
+
+def read(ctx):
+    return layer_ms(ctx, "scene")
