@@ -27,6 +27,7 @@ from .geom.path import Path
 from .render_plan import render_fast
 from .scene import Scene
 from .text.fonts import DEFAULT_FONTS, FontsDB
+from .utils import profiling
 from .utils.constants import DEFAULT_TILE
 
 
@@ -72,7 +73,6 @@ def main(argv=None) -> int:
         sys.stderr.write(f"[error] no such file: {opts.svg}\n")
         return 1
 
-    t_parse = time.monotonic()
     try:
         if opts.svg.endswith(".path"):
             with open(opts.svg, encoding="utf-8") as file:
@@ -96,7 +96,6 @@ def main(argv=None) -> int:
 
             traceback.print_exc()
         return 1
-    t_parse = time.monotonic() - t_parse
 
     if scene is None:
         sys.stderr.write("[error] nothing to render\n")
@@ -118,6 +117,9 @@ def main(argv=None) -> int:
                 file.write(data)
         return 0
 
+    if opts.profile:  # the render's spans: lowering, filter parts and primitives
+        profiling.reset()
+        profiling.enable(True)
     start = time.monotonic()
     sub = dict(linear_rgb=opts.linear_rgb, tile=DEFAULT_TILE, device=device)
     if size is not None:
@@ -135,7 +137,8 @@ def main(argv=None) -> int:
     elapsed = time.monotonic() - start
     sys.stderr.write(f"[info] rendered in {elapsed:.2f}\n")
     if opts.profile:
-        sys.stderr.write(f"[info] parse {t_parse:.2f}s render {elapsed:.2f}s\n")
+        profiling.enable(False)
+        sys.stderr.write(profiling.report() + "\n")
     sys.stderr.flush()
 
     if result is None:

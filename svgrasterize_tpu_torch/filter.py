@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from .core.layer import Layer
 from .core.transform import Transform
 from .ops import blur as blur_ops
+from .utils import profiling
 
 FE_BLEND = 0
 FE_COLOR_MATRIX = 1
@@ -47,6 +48,16 @@ FE_TILE = 13
 FE_TURBULENCE = 14
 FE_DROP_SHADOW = 15  # SVG2 convenience primitive
 FE_IMAGE = 16  # intra-document fragment references
+# each primitive's span (utils.profiling), by kind
+FE_SPANS = {
+    FE_BLEND: "fe.blend", FE_COLOR_MATRIX: "fe.color_matrix",
+    FE_COMPONENT_TRANSFER: "fe.component_transfer", FE_COMPOSITE: "fe.composite",
+    FE_CONVOLVE_MATRIX: "fe.convolve_matrix", FE_DIFFUSE_LIGHTING: "fe.diffuse_lighting",
+    FE_DISPLACEMENT_MAP: "fe.displacement_map", FE_FLOOD: "fe.flood",
+    FE_GAUSSIAN_BLUR: "fe.blur", FE_MERGE: "fe.merge", FE_MORPHOLOGY: "fe.morphology",
+    FE_OFFSET: "fe.offset", FE_SPECULAR_LIGHTING: "fe.specular_lighting", FE_TILE: "fe.tile",
+    FE_TURBULENCE: "fe.turbulence", FE_DROP_SHADOW: "fe.drop_shadow", FE_IMAGE: "fe.image",
+}
 
 FE_SOURCE_ALPHA = "SourceAlpha"
 FE_SOURCE_GRAPHIC = "SourceGraphic"
@@ -246,10 +257,11 @@ class Filter(NamedTuple):
         regions = (*self.regions, *([None] * (len(self.filters) - len(self.regions))))
         for (kind, attrs, inputs), region, const in zip(self.filters, regions,
                                                         consts.primitives):
-            args = [stack[i] for i in inputs]
-            out = _apply(kind, attrs, args, transform, linear, const)
-            if region is not None:
-                out = _crop_to_region(out, region, transform)
+            with profiling.stage(FE_SPANS[kind]):
+                args = [stack[i] for i in inputs]
+                out = _apply(kind, attrs, args, transform, linear, const)
+                if region is not None:
+                    out = _crop_to_region(out, region, transform)
             stack.append(out)
         return stack[-1]
 

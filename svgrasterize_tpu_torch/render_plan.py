@@ -71,6 +71,7 @@ from .scene import (
     RENDER_STROKE,
     RENDER_TRANSFORM,
 )
+from .utils import profiling
 from .utils.constants import DEFAULT_TILE, DEVICE_FLOAT, FLATNESS
 
 # interpreter group-run batching switch (tests disable it to get a pure
@@ -1546,7 +1547,8 @@ class _Builder:
         from .ops.batch_exec import CHUNK_BIG, SMALL_SEGS
 
         records = self._cull_occluded(records)
-        records, field_stack = self._collapse_runs(records)
+        with profiling.stage("lower.collapse"):
+            records, field_stack = self._collapse_runs(records)
         if pad_tile is None:
             pad_tile = self.num_tiles
         n = len(records)
@@ -1791,7 +1793,8 @@ def _plan_groups(builder: "_Builder") -> list:
         chunks = filter_batch.build_chunks(chunk_groups, builder.grid_w, builder.tile)
 
         merged.sort(key=lambda r: (r[0], r[1]))
-        items, bigs, clips = builder._pack(merged, pad_tile=row)
+        with profiling.stage("lower.pack"):
+            items, bigs, clips = builder._pack(merged, pad_tile=row)
         for key in ("tex_idx", "mask_idx"):
             arr = items[key]
             items[key] = np.where(arr >= 0, lut[np.maximum(arr, 0)], arr)
@@ -1838,36 +1841,40 @@ def lower_scene(scene, transform: Transform, viewport, linear_rgb: bool,
     overrides, > MAX_STOPS stops) return None, as in the JAX package, whose
     callers then use the interpreter.
     """
-    builder = _Builder(viewport, linear_rgb, tile, device)
-    try:
-        records = builder.build(scene, transform)
-    except _Unsupported:
-        return None
-    if not records:
-        return None
-    records.sort(key=lambda r: (r[0], r[1]))
-    items, bigs, clips = builder._pack(records)
-    if builder.all_points:
-        hull = ConvexHull(np.concatenate(builder.all_points, axis=0))
-    else:
-        hull = ConvexHull(np.zeros((0, 2)))
-    groups, pool_lut = _plan_groups(builder)
-    if pool_lut is not None:
-        for key in ("tex_idx", "mask_idx"):
-            arr = items[key]
-            items[key] = np.where(arr >= 0, pool_lut[np.maximum(arr, 0)], arr)
-    if builder.patterns:
-        p_h = _bucket(max(t.shape[0] for t in builder.patterns), minimum=8)
-        p_w = _bucket(max(t.shape[1] for t in builder.patterns), minimum=8)
-        patterns = np.zeros((len(builder.patterns), p_h, p_w, 4), DEVICE_FLOAT)
-        for i, t in enumerate(builder.patterns):
-            patterns[i, : t.shape[0], : t.shape[1]] = t
-    else:
-        patterns = None
-    return Lowered(
-        items, bigs, clips, (builder.grid_h, builder.grid_w), hull, groups, patterns,
-        builder.tile,
-    )
+    with profiling.stage("lower"):
+        builder = _Builder(viewport, linear_rgb, tile, device)
+        try:
+            with profiling.stage("lower.build"):
+                records = builder.build(scene, transform)
+        except _Unsupported:
+            return None
+        if not records:
+            return None
+        records.sort(key=lambda r: (r[0], r[1]))
+        with profiling.stage("lower.pack"):
+            items, bigs, clips = builder._pack(records)
+        if builder.all_points:
+            hull = ConvexHull(np.concatenate(builder.all_points, axis=0))
+        else:
+            hull = ConvexHull(np.zeros((0, 2)))
+        with profiling.stage("lower.groups"):
+            groups, pool_lut = _plan_groups(builder)
+        if pool_lut is not None:
+            for key in ("tex_idx", "mask_idx"):
+                arr = items[key]
+                items[key] = np.where(arr >= 0, pool_lut[np.maximum(arr, 0)], arr)
+        if builder.patterns:
+            p_h = _bucket(max(t.shape[0] for t in builder.patterns), minimum=8)
+            p_w = _bucket(max(t.shape[1] for t in builder.patterns), minimum=8)
+            patterns = np.zeros((len(builder.patterns), p_h, p_w, 4), DEVICE_FLOAT)
+            for i, t in enumerate(builder.patterns):
+                patterns[i, : t.shape[0], : t.shape[1]] = t
+        else:
+            patterns = None
+        return Lowered(
+            items, bigs, clips, (builder.grid_h, builder.grid_w), hull, groups, patterns,
+            builder.tile,
+        )
 
 
 # ----------------------------------------------------------------------------
@@ -2170,36 +2177,40 @@ def _apply_part_filter(canvas, part: _PartFilter, viewport, linear_rgb, t_size):
     from .core.layer import merge_at
 
     v0, v1 = int(viewport[0]), int(viewport[1])
-    first, count = part.rows
-    rows = canvas[first : first + count]
+    with profiling.stage("post.assemble"):
+        first, count = part.rows
+        rows = canvas[first : first + count]
 
-    # assemble the span of source tiles into one image
-    si0, sj0, nsi, nsj = part.span
-    span = canvas.new_zeros((nsi * nsj, t_size, t_size, 4))
-    span[part.local] = rows
-    image = span.reshape(nsi, nsj, t_size, t_size, 4)
-    image = image.permute(0, 2, 1, 3, 4).reshape(nsi * t_size, nsj * t_size, 4)
+        # assemble the span of source tiles into one image
+        si0, sj0, nsi, nsj = part.span
+        span = canvas.new_zeros((nsi * nsj, t_size, t_size, 4))
+        span[part.local] = rows
+        image = span.reshape(nsi, nsj, t_size, t_size, 4)
+        image = image.permute(0, 2, 1, 3, 4).reshape(nsi * t_size, nsj * t_size, 4)
 
-    # bbox-tight source crop: the filter sees the same layer origin the
-    # reference's interpreter would, so truncation-sensitive placement
-    # (blur offsets) matches bit-for-bit
-    content_bbox = part.content_bbox
-    or_, oc = si0 * t_size, sj0 * t_size  # span origin in canvas pixels
-    r0 = max(content_bbox[0] - v0 - or_, 0)
-    c0 = max(content_bbox[1] - v1 - oc, 0)
-    r1 = min(content_bbox[2] - v0 - or_, nsi * t_size)
-    c1 = min(content_bbox[3] - v1 - oc, nsj * t_size)
-    crop = image[r0:r1, c0:c1]
-    layer = Layer(crop, (v0 + or_ + r0, v1 + oc + c0), pre_alpha=True, linear_rgb=linear_rgb)
-    filtered = part.flt(part.transform, layer, part.consts).convert(
-        pre_alpha=True, linear_rgb=linear_rgb)
+        # bbox-tight source crop: the filter sees the same layer origin the
+        # reference's interpreter would, so truncation-sensitive placement
+        # (blur offsets) matches bit-for-bit
+        content_bbox = part.content_bbox
+        or_, oc = si0 * t_size, sj0 * t_size  # span origin in canvas pixels
+        r0 = max(content_bbox[0] - v0 - or_, 0)
+        c0 = max(content_bbox[1] - v1 - oc, 0)
+        r1 = min(content_bbox[2] - v0 - or_, nsi * t_size)
+        c1 = min(content_bbox[3] - v1 - oc, nsj * t_size)
+        crop = image[r0:r1, c0:c1]
+        layer = Layer(crop, (v0 + or_ + r0, v1 + oc + c0), pre_alpha=True,
+                      linear_rgb=linear_rgb)
+    with profiling.stage("post.chain"):
+        filtered = part.flt(part.transform, layer, part.consts).convert(
+            pre_alpha=True, linear_rgb=linear_rgb)
 
-    di0, dj0, nti, ntj = part.out
-    dst = canvas.new_zeros((nti * t_size, ntj * t_size, 4))
-    dst = merge_at(dst, filtered.image,
-                   (filtered.x - v0 - di0 * t_size, filtered.y - v1 - dj0 * t_size))
-    tiles = dst.reshape(nti, t_size, ntj, t_size, 4).permute(0, 2, 1, 3, 4)
-    return tiles.reshape(nti * ntj, t_size, t_size, 4).contiguous()
+    with profiling.stage("post.retile"):
+        di0, dj0, nti, ntj = part.out
+        dst = canvas.new_zeros((nti * t_size, ntj * t_size, 4))
+        dst = merge_at(dst, filtered.image,
+                       (filtered.x - v0 - di0 * t_size, filtered.y - v1 - dj0 * t_size))
+        tiles = dst.reshape(nti, t_size, ntj, t_size, 4).permute(0, 2, 1, 3, 4)
+        return tiles.reshape(nti * ntj, t_size, t_size, 4).contiguous()
 
 
 def execute_lowered(lowered, device="cuda", viewport=(0, 0), linear_rgb: bool = False,
@@ -2299,20 +2310,34 @@ class CompiledScene:
 
         On a CUDA device each frame is a replay of the captured graph on the
         current stream (a failed capture raises); on the CPU each frame runs
-        render_tiles.  Single-device plans only."""
+        render_tiles.  Single-device plans only.  With tracing on (utils.
+        profiling) a request span covers the call and a request.replay span
+        its frames; off, each costs one check of the flag."""
         if self._mesh is not None:
             raise ValueError("render_tiles_many: single-device plans only")
         k = int(k)
         if k < 1:
             raise ValueError(f"render_tiles_many: k must be >= 1, got {k}")
+        if not profiling.tracing:
+            return self._frames(k)
+        with profiling.stage("request", request=True):
+            return self._frames(k)
+
+    def _frames(self, k: int):
         if self._program.device.type != "cuda":
-            for _ in range(k):
-                tiles = self.render_tiles()
+            with profiling.stage("request.replay"):
+                for _ in range(k):
+                    tiles = self.render_tiles()
             return tiles
         if self._graph is None:
             self._capture()
-        for _ in range(k):
-            self._graph.replay()
+        if not profiling.tracing:
+            for _ in range(k):
+                self._graph.replay()
+        else:
+            with profiling.stage("request.replay"):
+                for _ in range(k):
+                    self._graph.replay()
         self.replays += k
         return self._frame.clone()
 
@@ -2336,17 +2361,19 @@ class CompiledScene:
 
     def render(self) -> Layer:
         """Viewport-sized premultiplied Layer."""
-        return tiles_to_layer(
-            self.render_tiles(), self._lowered.grid, self._lowered.tile,
-            self._viewport, self._linear_rgb,
-        )
+        return self._layer(self.render_tiles())
 
     def render_many(self, k: int) -> Layer:
-        """k frames (render_tiles_many); the last one as a Layer."""
-        return tiles_to_layer(
-            self.render_tiles_many(k), self._lowered.grid, self._lowered.tile,
-            self._viewport, self._linear_rgb,
-        )
+        """k frames (render_tiles_many); the last one as a Layer, in the same
+        request span."""
+        if not profiling.tracing:
+            return self._layer(self.render_tiles_many(k))
+        with profiling.stage("request", request=True):
+            return self._layer(self.render_tiles_many(k))
+
+    def _layer(self, tiles) -> Layer:
+        return tiles_to_layer(tiles, self._lowered.grid, self._lowered.tile, self._viewport,
+                              self._linear_rgb)
 
 
 def compile_scene(scene, transform: Transform, viewport, linear_rgb: bool = False,

@@ -2,10 +2,13 @@
 
 The twin of the JAX package's utils/profiling.py:
 
-  * `stage(name)` — context manager recording host wall time per stage,
-    nested, also emitting a `torch.profiler.record_function` so stages show
-    up in profiler traces
+  * `stage(name)` — the port's one span: with tracing on (`enable`) it
+    records host wall time per stage for `report()`, appends the span to an
+    in-memory record (`spans()`) and mirrors it as a
+    `torch.profiler.record_function`, so profiler traces carry it on the
+    device trace's clock; with tracing off it is one check of a flag
   * `report()` — stage table
+  * `spans()` — the record: the newest RECORD_LIMIT closed spans
   * `trace_to(dir)` — wraps torch.profiler (CPU, plus CUDA when a card is
     present) and writes a Chrome trace into the directory
   * `checked(fn)` — raises on the NaN, division-by-zero and out-of-bounds
@@ -15,8 +18,10 @@ The twin of the JAX package's utils/profiling.py:
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+from typing import NamedTuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -24,36 +29,95 @@ from torch.utils._pytree import tree_leaves
 
 _times: dict[str, float] = defaultdict(float)
 _counts: dict[str, int] = defaultdict(int)
-_enabled = False
+# whether tracing is on (enable() sets it); a per-request path reads it
+# before a span, so that tracing off costs it one check
+tracing = False
+
+# the record keeps the newest spans; a span's parent may have been dropped
+RECORD_LIMIT = 1 << 18
+
+
+class Span(NamedTuple):
+    """One closed span: its id, name, the enclosing span's id (None at the
+    top), the id of the request it belongs to (None outside a request) and
+    its time.perf_counter_ns() start and end."""
+
+    id: int
+    name: str
+    parent: int | None
+    request: int | None
+    start_ns: int
+    end_ns: int
+
+
+_record: deque = deque(maxlen=RECORD_LIMIT)
+_open: list = []  # (id, request) of the spans open now, innermost last (one thread)
+_span_ids = itertools.count()
+_request_ids = itertools.count()
+_OFF = contextlib.nullcontext()
 
 
 def enable(on: bool = True) -> None:
-    global _enabled
-    _enabled = on
+    global tracing
+    tracing = on
 
 
 def reset() -> None:
     _times.clear()
     _counts.clear()
+    _record.clear()
 
 
-@contextlib.contextmanager
-def stage(name: str):
-    """Record wall time for a pipeline stage (and tag it for traces).
+def spans() -> list:
+    """The record: closed spans (Span), oldest first."""
+    return list(_record)
 
-    The time is the host's: the stage does not synchronize the card, so on
-    CUDA it covers what the host did and enqueued in the stage, not the
-    card's work (end the stage with torch.cuda.synchronize() to include it).
+
+def stage(name: str, request: bool = False):
+    """A span named `name` around a pipeline stage (a context manager).
+
+    With tracing off it returns a shared null context: no clock, no
+    record_function, no allocation.  With tracing on it records the
+    stage's host wall time and appends a Span to the record when it ends.
+    request=True starts a new request id, which the spans inside it share;
+    inside a request such a span is not opened (the outermost one covers
+    the call).  The time is the host's: the stage does not synchronize the
+    card, so on CUDA it covers what the host did and enqueued in the stage,
+    not the card's work (end the stage with torch.cuda.synchronize() to
+    include it).
     """
-    if not _enabled:
-        with torch.profiler.record_function(name):
-            yield
-        return
-    start = time.perf_counter()
-    with torch.profiler.record_function(name):
-        yield
-    _times[name] += time.perf_counter() - start
-    _counts[name] += 1
+    if not tracing or (request and _open and _open[-1][1] is not None):
+        return _OFF
+    return _Stage(name, request)
+
+
+class _Stage:
+    __slots__ = ("name", "new_request", "request", "id", "parent", "mirror", "start")
+
+    def __init__(self, name: str, new_request: bool):
+        self.name = name
+        self.new_request = new_request
+
+    def __enter__(self):
+        self.parent, request = _open[-1] if _open else (None, None)
+        if self.new_request:
+            request = next(_request_ids)
+        self.request = request
+        self.id = next(_span_ids)
+        _open.append((self.id, request))
+        self.mirror = torch.profiler.record_function(self.name)
+        self.mirror.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self.mirror.__exit__(*exc)
+        _open.pop()
+        _record.append(Span(self.id, self.name, self.parent, self.request, self.start, end))
+        _times[self.name] += (end - self.start) / 1e9
+        _counts[self.name] += 1
+        return False
 
 
 def report() -> str:

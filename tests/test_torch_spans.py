@@ -1,0 +1,179 @@
+"""The port's spans (utils.profiling.stage) on a compiled render of a small
+isolation-pass document, on the CPU.
+
+With tracing off a span is a shared null context: no record_function, no
+record.  With tracing on, lowering, the filter parts' post stage, each
+filter primitive and each serving request record the spans that the
+benchmark's readers and the CLI's --profile read, nested as the code nests
+them, each mirrored by a record_function of its name.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from svgrasterize_tpu_torch import filter as filter_mod
+from svgrasterize_tpu_torch.cli import main as torch_main
+from svgrasterize_tpu_torch.core.transform import Transform
+from svgrasterize_tpu_torch.frontend.svg import scene_from_str
+from svgrasterize_tpu_torch.render_plan import CompiledScene, lower_scene
+from svgrasterize_tpu_torch.utils import profiling
+
+from chip_smoke import pass_doc
+
+SIZE = 256
+LOWERING = {"lower", "lower.build", "lower.pack", "lower.collapse", "lower.groups"}
+POST = {"post.assemble", "post.chain", "post.retile"}
+# the filter primitives pass_doc's chains use
+PRIMITIVES = {"fe.blur", "fe.offset", "fe.merge", "fe.color_matrix", "fe.composite"}
+
+
+@pytest.fixture(scope="module")
+def doc_scene():
+    scene, _ids, (w, h) = scene_from_str(pass_doc(96, SIZE, 0), None, SIZE, None)
+    return scene, (0, 0, int(h), int(w))
+
+
+@pytest.fixture
+def tracing():
+    """Tracing on, the record empty; off and empty afterwards."""
+    profiling.reset()
+    profiling.enable(True)
+    yield
+    profiling.enable(False)
+    profiling.reset()
+
+
+@pytest.fixture
+def mirrors(monkeypatch):
+    """The names of the record_function marks entered, in order."""
+    entered = []
+    real = torch.profiler.record_function
+
+    def counted(name, *args):
+        entered.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    return entered
+
+
+def _serve(doc_scene, requests: int = 1):
+    scene, viewport = doc_scene
+    lowered = lower_scene(scene, Transform().matrix(0, 1, 0, 1, 0, 0), viewport, False, 32,
+                          device="cpu")
+    assert lowered is not None and lowered.groups
+    cs = CompiledScene(lowered, viewport, False, device="cpu")
+    for _ in range(requests):
+        cs.render_many(1)
+    return cs
+
+
+def test_spans_off_record_nothing_and_mark_nothing(doc_scene, mirrors):
+    profiling.reset()
+    assert not profiling.tracing
+    cs = _serve(doc_scene)
+    cs.render_tiles_many(2)
+    assert mirrors == []
+    assert profiling.spans() == []
+    assert profiling.report() == "(no stages recorded)"
+    # one shared null context, made once
+    assert profiling.stage("a") is profiling.stage("b", request=True)
+
+
+def test_spans_on_nest_as_the_code_does(doc_scene, tracing, mirrors):
+    _serve(doc_scene)
+    spans = profiling.spans()
+    by_id = {s.id: s for s in spans}
+    names = [s.name for s in spans]
+    assert LOWERING | POST | PRIMITIVES | {"request", "request.replay"} <= set(names)
+    # each span mirrored by one record_function of its name
+    assert sorted(mirrors) == sorted(names)
+
+    def parent(s):
+        return by_id[s.parent].name if s.parent is not None else None
+
+    for s in spans:
+        if s.name in ("lower.build", "lower.groups"):
+            assert parent(s) == "lower"
+        elif s.name == "lower.pack":
+            assert parent(s) in ("lower", "lower.groups")
+        elif s.name == "lower.collapse":
+            assert parent(s) == "lower.pack"
+        elif s.name in POST:
+            # on the CPU a request's frames run eagerly, inside its replay span
+            assert parent(s) == "request.replay"
+        elif s.name.startswith("fe."):
+            assert parent(s) == "post.chain"
+        elif s.name == "request.replay":
+            assert parent(s) == "request"
+        else:
+            assert s.name in ("lower", "request") and s.parent is None
+    assert sum(n == "lower.pack" and parent(s) == "lower.groups"
+               for n, s in zip(names, spans)) >= 1
+
+    # children lie inside their parents; self times are non-negative and
+    # the self times of a subtree add up to its root's time
+    children = {}
+    for s in spans:
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+            children.setdefault(s.parent, []).append(s)
+    self_ns = {s.id: (s.end_ns - s.start_ns) - sum(c.end_ns - c.start_ns
+                                                   for c in children.get(s.id, ()))
+               for s in spans}
+    assert min(self_ns.values()) >= 0
+
+    def subtree(i):
+        return self_ns[i] + sum(subtree(c.id) for c in children.get(i, ()))
+
+    for root in (s for s in spans if s.parent is None):
+        assert subtree(root.id) == root.end_ns - root.start_ns
+
+
+def test_a_request_id_is_shared_by_its_spans(doc_scene, tracing):
+    cs = _serve(doc_scene, requests=2)
+    cs.render_tiles_many(1)
+    spans = profiling.spans()
+    requests = [s for s in spans if s.name == "request"]
+    # render_many opens the request; the render_tiles_many it calls opens none
+    assert len(requests) == 3 and len({s.request for s in requests}) == 3
+    for req in requests:
+        inside = [s for s in spans if req.start_ns <= s.start_ns and s.end_ns <= req.end_ns
+                  and s is not req]
+        assert [s.name for s in inside if s.parent == req.id] == ["request.replay"]
+        assert inside and all(s.request == req.request for s in inside)
+    assert all(s.request is None for s in spans if s.name in LOWERING)
+
+
+def test_reset_clears_the_record(doc_scene, tracing):
+    with profiling.stage("outer"):
+        with profiling.stage("inner"):
+            pass
+    assert [s.name for s in profiling.spans()] == ["inner", "outer"]
+    assert "outer" in profiling.report()
+    profiling.reset()
+    assert profiling.spans() == []
+    assert profiling.report() == "(no stages recorded)"
+
+
+def test_every_filter_primitive_has_a_span():
+    kinds = {v for k, v in vars(filter_mod).items() if k.startswith("FE_")
+             and isinstance(v, int)}
+    assert set(filter_mod.FE_SPANS) == kinds
+    assert all(name.startswith("fe.") for name in filter_mod.FE_SPANS.values())
+    assert len(set(filter_mod.FE_SPANS.values())) == len(kinds)
+
+
+def test_cli_profile_prints_the_stage_table(tmp_path, capsys):
+    svg = tmp_path / "doc.svg"
+    svg.write_text(pass_doc(96, SIZE, 0))
+    assert torch_main([str(svg), str(tmp_path / "out.png"), "--device", "cpu",
+                       "--profile"]) == 0
+    table = capsys.readouterr().err
+    for name in sorted(LOWERING | POST | PRIMITIVES):
+        assert f"\n{name} " in table, name
+    assert not profiling.tracing
+    profiling.reset()

@@ -87,9 +87,15 @@ def test_stage_report_reset_match(enabled):
 
 
 def test_trace_to_writes_the_stage(tmp_path):
-    with t_prof.trace_to(str(tmp_path)):
-        with t_prof.stage("svgr_traced_stage"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
+    # a stage marks the trace only with tracing on (off, it is a null context)
+    t_prof.enable(True)
+    try:
+        with t_prof.trace_to(str(tmp_path)):
+            with t_prof.stage("svgr_traced_stage"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    finally:
+        t_prof.enable(False)
+        t_prof.reset()
     traces = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
     assert len(traces) == 1
     assert "svgr_traced_stage" in (tmp_path / traces[0]).read_text()
