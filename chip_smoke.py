@@ -6,14 +6,15 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the five hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
+It builds the hand-written CUDA kernels from svgrasterize_tpu_torch/csrc
 with nvcc (one process per source, in parallel) and prints each compiled
 kernel's registers and spills, holds each against its plain PyTorch version
 on the card (the prepass on random multi-class calls, one launch each; the
 scene kernel on random plans reaching every item kind at T = 16, 32, 64 and
 128; the blur-chunk kernel on a document level's chunks and on random
 chunks at every tile, each alone and packed into one level, one launch
-each; the winding kernel
+each; the filter parts' entry and exit kernels on every part of the
+icons_3840 benchmark frame and on random parts at every tile; the winding kernel
 on one interpreter render's masks, one launch per mask and all of them in
 one batched launch, which must agree bit for bit, on random lists up to
 2,048 edges at 1024 x 1024 and on the adversarial lists of
@@ -77,6 +78,7 @@ BLUR_TOL = 1e-5  # the same band products, summed in another order
 WINDING_TOL = 1e-4  # the prepass's closed form over a whole image, other order
 PNG_TOL = 1  # 8-bit steps: ~1e-6 differences at a .5 boundary flip one step
 CPU_TOL = 1e-5  # a card frame against the same program rendered on the CPU
+PART_TOL = 1e-5  # the part kernels: the same f32 steps; powf within an ulp or two
 
 CLI_SIZE = 1488
 CLI_DRAWS = 1536
@@ -105,7 +107,8 @@ SPRITE_ICONS, SPRITE_COLS = ATLAS_DOCS * ATLAS_COPIES, 7
 # the port's kernels as a profiler trace names them (their __global__ names)
 TRACE_KERNELS = {"prepass_kernel": "prepass_winding", "scene_kernel": "scene_tiles",
                  "blur_level_kernel": "blur_chunk", "pool_rows_kernel": "pool_rows",
-                 "winding_kernel": "winding"}
+                 "winding_kernel": "winding", "part_entry_kernel": "part_entry",
+                 "part_exit_kernel": "part_exit"}
 
 # Least-time bounds (NVIDIA's H100 SXM data sheet, full 700 W power limit):
 # device memory rate and the f32 rate outside the tensor cores.
@@ -1175,6 +1178,263 @@ def _pool_rows_line(r: dict) -> str:
             f" {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
 
+def random_part(torch, rng, t: int, dev):
+    """A random filter part (render_plan._PartFilter), the level's canvas its
+    rows lie in and a viewport: a span of up to 4 x 4 tiles with empty
+    slots and its rows in random order, a source bbox whose edges may lie
+    inside the span, on it or past it on any side, either chain
+    colorspace, and an out span of up to 4 x 4 tiles, some of them written
+    to distinct pool rows among POOL_SPARE more."""
+    from svgrasterize_tpu_torch.core.transform import Transform
+    from svgrasterize_tpu_torch.filter import Filter
+    from svgrasterize_tpu_torch.render_plan import _PartFilter
+
+    def ints(lo, hi, n=2):
+        return [int(v) for v in rng.integers(lo, hi, n)]
+
+    si0, sj0 = ints(0, 4)
+    nsi, nsj = ints(1, 5)
+    count = int(rng.integers(1, nsi * nsj + 1))
+    local = rng.permutation(nsi * nsj)[:count]  # each row's span tile
+    slots = np.full(nsi * nsj, -1)
+    slots[local] = np.arange(count)
+    first = int(rng.integers(0, 4))
+    canvas = _random_canvas(torch, rng, t, first + count + int(rng.integers(0, 3)), dev)
+    viewport = tuple(ints(-40, 41))
+    bbox = []  # each edge past the span's, on it or inside, a third of the time each
+    for origin, size in ((viewport[0] + si0 * t, nsi * t), (viewport[1] + sj0 * t, nsj * t)):
+        lo = origin + (-int(rng.integers(1, t + 1)), 0, int(rng.integers(0, size)))[
+            rng.integers(0, 3)]
+        end = origin + size
+        hi = (end + int(rng.integers(1, t + 1)), end,
+              int(rng.integers(max(lo, origin) + 1, end + 1)))[rng.integers(0, 3)]
+        bbox.append((lo, hi))
+    di0, dj0 = ints(0, 4)
+    nti, ntj = ints(1, 5)
+    n_out = int(rng.integers(1, nti * ntj + 1))
+    flt = Filter.empty(linear=bool(rng.integers(0, 2)))
+
+    def i32(values):
+        return torch.as_tensor(np.asarray(values, np.int32), device=dev)
+
+    part = _PartFilter(
+        flt=flt, transform=Transform(), content_bbox=(bbox[0][0], bbox[1][0], bbox[0][1],
+                                                      bbox[1][1]),
+        rows=(first, count), span=(si0, sj0, nsi, nsj),
+        local=torch.as_tensor(local, dtype=torch.int64, device=dev), slots=i32(slots),
+        out=(di0, dj0, nti, ntj), consts=flt.prepare(Transform(), dev),
+        src_idx=i32(rng.permutation(nti * ntj)[:n_out]),
+        dst_idx=i32(rng.permutation(n_out + POOL_SPARE)[:n_out]),
+    )
+    return canvas, part, viewport
+
+
+POOL_SPARE = 5  # pool rows beyond a random part's out tiles
+
+
+def random_result(torch, rng, part, t: int, viewport, dev, state=None):
+    """A random chain result for random_part's part: 1 or 4 channels, either
+    alpha mode and colorspace (state: (channels, pre_alpha, linear_rgb) to
+    fix them), values a little outside [0, 1] and alphas at and below the
+    1e-4 guard, contiguous or a view with other strides, and an offset
+    anywhere from wholly above or left of the out span to wholly below or
+    right of it."""
+    from svgrasterize_tpu_torch.core.layer import Layer
+
+    di0, dj0, nti, ntj = part.out
+    h, w = int(rng.integers(1, nti * t + t)), int(rng.integers(1, ntj * t + t))
+    channels = 1 if rng.random() < 0.25 else 4
+    pre, lin = (bool(v) for v in rng.integers(0, 2, 2))
+    if state is not None:
+        channels, pre, lin = state
+    alpha = rng.uniform(0, 1, (h, w, 1))
+    alpha[rng.random(alpha.shape) < 0.2] = 0.0
+    alpha[rng.random(alpha.shape) < 0.05] = 5e-5
+    rgb = rng.uniform(0, 1, (h, w, 3)) * (alpha if pre else 1.0)
+    image = np.concatenate([rgb, alpha], -1) * np.where(rng.random((h, w, 4)) < 0.03,
+                                                        1.1, 1.0)
+    image = torch.from_numpy(image.astype(np.float32)).to(dev)
+    layout = int(rng.integers(0, 3))
+    if channels == 1:
+        image = image[..., 3:] if layout else image[..., 3:].contiguous()
+    elif layout == 1:  # a window of a wider image
+        wide = image.new_zeros((h, w + 3, 4))
+        wide[:, 2:w + 2] = image
+        image = wide[:, 2:w + 2]
+    elif layout == 2:  # channel-planar storage
+        image = image.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    off = (int(rng.integers(-h, nti * t + 1)), int(rng.integers(-w, ntj * t + 1)))
+    return Layer(image, (off[0] + viewport[0] + di0 * t, off[1] + viewport[1] + dj0 * t),
+                 pre_alpha=pre, linear_rgb=lin)
+
+
+def _part_io_bytes(parts, viewport, t: int) -> tuple:
+    """Bytes the part kernels need for parts, each read once and written
+    once: entry, the crop's pixels and the two seeds; exit, the result's
+    pixels inside the out span and the out tiles."""
+    from svgrasterize_tpu_torch.ops import part_io
+
+    entry = exit_ = 0
+    for part, result in parts:
+        (r0, r1, c0, c1), _off = part_io.crop_window(part, viewport, t)
+        _si0, _sj0, nsi, nsj = part.span
+        pixels = len(range(nsi * t)[r0:r1]) * len(range(nsj * t)[c0:c1])
+        entry += 3 * pixels * 16
+        _di0, _dj0, nti, ntj = part.out
+        off_r, off_c = part_io.exit_offset(result, part, viewport, t)
+        h, w, channels = result.image.shape
+        inside = (max(0, min(off_r + h, nti * t) - max(off_r, 0))
+                  * max(0, min(off_c + w, ntj * t) - max(off_c, 0)))
+        exit_ += inside * channels * 4 + part.src_idx.shape[0] * t * t * 16
+    return entry, exit_
+
+
+def _part_io_phase(torch, dev, results: dict) -> None:
+    """The part entry and exit kernels against their plain versions: every
+    filter part of the icons_3840 benchmark frame (rasterbench's
+    configuration), then random parts at T=16/32/64/128; each call one
+    launch.  Times of the frame's parts by CUDA events, against their
+    bytes bound; the served icon frame captures one entry and one exit a
+    part."""
+    from rasterbench.docs import pass_doc as icons
+    from svgrasterize_tpu_torch.core.transform import Transform
+    from svgrasterize_tpu_torch.frontend.svg import scene_from_str
+    from svgrasterize_tpu_torch.ops import fused_exec, part_io
+    from svgrasterize_tpu_torch.render_plan import (
+        KERNEL_OPS,
+        CompiledScene,
+        _apply_group_post,
+        lower_scene,
+        new_pool,
+    )
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "rasterbench",
+                           "configs", "icons_3840.json"), encoding="utf-8") as f:
+        config = json.load(f)
+    svg, _records = icons.generate(0, **config["args"])
+    scene, _ids, (w, h) = scene_from_str(svg, None, config["width"], None)
+    vp = (0, 0, int(h), int(w))
+    t = config["tile"]
+    lowered = lower_scene(scene, Transform().matrix(0, 1, 0, 1, 0, 0), vp, False, t,
+                          device=dev)
+    cs = CompiledScene(lowered, vp, False, device=dev)
+    prog = cs.program
+    pool = new_pool(prog)
+    parts, seeds_err, exit_err = [], 0.0, 0.0
+
+    def check_entry(canvas, part, viewport, t):
+        before = fused_exec.part_entry.launches
+        got = fused_exec.part_entry(canvas, part, viewport, False, t)
+        if fused_exec.part_entry.launches != before + 1:
+            raise RuntimeError("part_entry made other than one launch")
+        ref = part_io.part_entry(canvas, part, viewport, False, t)
+        err = 0.0
+        for g, r in zip(got, ref):
+            if (g.offset, g.pre_alpha, g.linear_rgb, g.image.shape) != (
+                    r.offset, r.pre_alpha, r.linear_rgb, r.image.shape):
+                raise RuntimeError(f"part_entry gives {g}, plain {r}")
+            err = max(err, float((g.image - r.image).abs().max()))
+        return got, err
+
+    def check_exit(pool, result, part, viewport, t, linear_rgb):
+        got, ref = pool.clone(), pool.clone()
+        before = fused_exec.part_exit.launches
+        fused_exec.part_exit(got, result, part, viewport, linear_rgb, t)
+        if fused_exec.part_exit.launches != before + 1:
+            raise RuntimeError("part_exit made other than one launch")
+        part_io.part_exit(ref, result, part, viewport, linear_rgb, t)
+        return float((got - ref).abs().max())
+
+    # the frame's parts, in order (each level's rows in the pool first)
+    for level in prog.levels:
+        canvas = fused_exec.execute_items_fused(level.plan, pool if level.needs_pool else None)
+        for part in level.filters:
+            seeds, err = check_entry(canvas, part, vp[:2], t)
+            seeds_err = max(seeds_err, err)
+            result = part.flt(part.transform, seeds[1], part.consts, seeds=seeds)
+            exit_err = max(exit_err, check_exit(pool, result, part, vp[:2], t, False))
+            parts.append((canvas, part, seeds, result))
+        _apply_group_post(canvas, pool, level, vp[:2], False, t, KERNEL_OPS)
+    torch.cuda.synchronize()
+    if not parts:
+        raise RuntimeError("the icons_3840 frame has no filter part")
+    states = sorted({(r.image.shape[2], r.pre_alpha, r.linear_rgb) for *_x, r in parts})
+
+    def entries():
+        for canvas, part, _s, _r in parts:
+            fused_exec.part_entry(canvas, part, vp[:2], False, t)
+
+    def exits():
+        for _c, part, _s, result in parts:
+            fused_exec.part_exit(pool, result, part, vp[:2], False, t)
+
+    def plain_entries():
+        for canvas, part, _s, _r in parts:
+            part_io.part_entry(canvas, part, vp[:2], False, t)
+
+    def plain_exits():
+        for _c, part, _s, result in parts:
+            part_io.part_exit(pool, result, part, vp[:2], False, t)
+
+    n = len(parts)
+    entry_bytes, exit_bytes = _part_io_bytes([(p, r) for _c, p, _s, r in parts], vp[:2], t)
+    timed = {}
+    for name, fn, plain, nbytes in (("part_entry", entries, plain_entries, entry_bytes),
+                                    ("part_exit", exits, plain_exits, exit_bytes)):
+        timed[name] = dict(ms=_time_ms(torch, fn, 20) / n, dev_ms=_device_ms(torch, fn, 20) / n,
+                           plain_ms=_time_ms(torch, plain, 5) / n, **_bound(nbytes / n, 0))
+
+    # random parts at every tile, their results in every state
+    rng = np.random.default_rng(18)
+    worst = {"part_entry": 0.0, "part_exit": 0.0}
+    for tr in fused_exec.KERNEL_TILES:
+        for _ in range(24):
+            canvas, part, viewport = random_part(torch, rng, tr, dev)
+            lin_canvas = bool(rng.integers(0, 2))
+            got = fused_exec.part_entry(canvas, part, viewport, lin_canvas, tr)
+            ref = part_io.part_entry(canvas, part, viewport, lin_canvas, tr)
+            for g, r in zip(got, ref):
+                if g.image.shape != r.image.shape or g.offset != r.offset:
+                    raise RuntimeError(f"part_entry at T={tr}: {g} against plain {r}")
+                if g.image.numel():
+                    worst["part_entry"] = max(worst["part_entry"],
+                                              float((g.image - r.image).abs().max()))
+            rpool = _random_canvas(torch, rng, tr, part.dst_idx.shape[0] + POOL_SPARE, dev)
+            result = random_result(torch, rng, part, tr, viewport, dev)
+            worst["part_exit"] = max(worst["part_exit"], check_exit(
+                rpool, result, part, viewport, tr, lin_canvas))
+    torch.cuda.synchronize()
+    for name, err in (("part_entry", max(seeds_err, worst["part_entry"])),
+                      ("part_exit", max(exit_err, worst["part_exit"]))):
+        if not err <= PART_TOL:
+            raise RuntimeError(f"{name} kernel disagrees with plain: {err} > {PART_TOL}")
+        results[name] = dict(max_abs_err=err, library_ms=None, **timed[name])
+
+    # the served icon frame: one entry and one exit a part, captured
+    fused_exec.reset_launch_counts()
+    cs.render_tiles_many(2)
+    torch.cuda.synchronize()
+    captured = {k: cs.frame_launches[k] for k in ("part_entry", "part_exit")}
+    if captured != {"part_entry": n, "part_exit": n}:
+        raise RuntimeError(f"the icon frame captured {captured} for {n} filter parts")
+    crops = [s[1].image.shape[0] * s[1].image.shape[1] for _c, _p, s, _r in parts]
+    _say("part_io", (
+        f"icons_3840 T={t}: {n} filter parts in {len(prog.levels)} levels, crops"
+        f" {min(crops)}-{max(crops)} px ({sum(crops)} in all), results (channels, pre_alpha,"
+        f" linear_rgb) {states}: entry max abs diff {seeds_err:.3g}, exit {exit_err:.3g};"
+        f" random parts T={list(fused_exec.KERNEL_TILES)} x 24: entry"
+        f" {worst['part_entry']:.3g}, exit {worst['part_exit']:.3g}; the served frame"
+        f" captures {captured}"
+    ))
+    for name, r in timed.items():
+        _say("part_io", (
+            f"{name}, the frame's {n} parts: {r['ms']:.4f} ms a call ({r['dev_ms']:.4f} ms"
+            f" with the host ahead), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f}"
+            f" ms ({r['bound_by']})"
+        ))
+    del cs, prog, pool, parts
+
+
 def _serve_8k_phase(torch, doc: str, fonts, dev, path_launches: dict) -> None:
     """The JAX package's 8K serving configuration on the card: the flat
     document parsed at EIGHT_K_WIDTH wide, lowered at EIGHT_K_TILE, uploaded
@@ -1296,12 +1556,12 @@ def _layer_breakdown(torch, doc: str, dev) -> str:
 def _pass_breakdown(torch, prog, pool, viewport) -> str:
     """ms per frame of an uploaded pass program through the kernels, and of
     its stages by kind: the levels' scene programs, the per-part filter
-    chains (PyTorch ops), the blur levels (one launch each), the level pool
+    chains (entry and exit kernels, PyTorch ops between), the blur levels (one launch each), the level pool
     writes and the main stream.  CUDA events around the calls, so a stage whose host
     dispatch is slower than the card is timed by its dispatch.  pool holds
     every level's rows (a run_program with it came first)."""
     from svgrasterize_tpu_torch.ops import fused_exec
-    from svgrasterize_tpu_torch.render_plan import _apply_part_filter, run_program
+    from svgrasterize_tpu_torch.render_plan import KERNEL_OPS, _apply_part_filter, run_program
 
     t, origin = prog.tile, viewport[:2]
     levels = prog.levels
@@ -1315,7 +1575,7 @@ def _pass_breakdown(torch, prog, pool, viewport) -> str:
     def filters():
         for lv, canvas in zip(levels, canvases):
             for part in lv.filters:
-                _apply_part_filter(canvas, part, origin, False, t)
+                _apply_part_filter(canvas, pool, part, origin, False, t, KERNEL_OPS)
 
     def blurs():
         for lv, canvas in zip(levels, canvases):
@@ -1638,7 +1898,7 @@ def _profile_phase(torch, pass_cs, lines, colors, path_launches: dict) -> None:
     _say("profile", (
         f"pass frame (eager render_tiles, pass_doc {CLI_SIZE}^2 T=32): {len(kernels)} kernels,"
         f" {sum(c for c, _us in kernels.values())} launches, device time {port_us / 1e3:.4f} ms"
-        f" in the port's five kernels (launches {counts}), {torch_us / 1e3:.4f} ms in PyTorch's"
+        f" in the port's kernels (launches {counts}), {torch_us / 1e3:.4f} ms in PyTorch's"
         f" own (the filter chains and canvas ops)"
     ))
     for name, (n, us) in top:
@@ -2030,6 +2290,9 @@ def main() -> int:
         results["pool_rows"] = _pool_rows_check(torch, prog, canvas0)
         _say("pool_rows", _pool_rows_line(results["pool_rows"]))
 
+        # 9b. the filter parts' entry and exit kernels against plain
+        _part_io_phase(torch, dev, results)
+
         # 10. CLI, isolation-pass document (a main path)
         fused_exec.reset_launch_counts()
         out_png = os.path.join(tmp, "passes.png")
@@ -2411,9 +2674,17 @@ def main() -> int:
                 f" ms/frame ({r['eager_ms'] / r['replay_ms']:.2f}x); replay == render_tiles"
                 f" bit for bit; captured frame launches {r['launches']}"
             ))
-        missed = {"prepass_winding", "scene_tiles", "blur_chunk", "pool_rows"} - captured
+        missed = {"prepass_winding", "scene_tiles", "blur_chunk", "pool_rows", "part_entry",
+                  "part_exit"} - captured
         if missed:
             raise RuntimeError(f"no captured frame launched {sorted(missed)}")
+        # one entry and one exit a filter part; none in a pass-free frame
+        for cs_ in (serve_cs, pass_cs):
+            n_parts = sum(len(lv.filters) for lv in cs_.program.levels)
+            if (cs_.frame_launches["part_entry"], cs_.frame_launches["part_exit"]) != (
+                    n_parts, n_parts):
+                raise RuntimeError(f"a frame of {n_parts} filter parts launched"
+                                   f" {cs_.frame_launches}")
 
         # 18. replay ms/frame by tile size (measured only); the pass
         # document's T=128 scene is kept for 18b
@@ -2635,7 +2906,8 @@ def main() -> int:
 
     launches = {
         k: sum(counts[k] for counts in path_launches.values())
-        for k in ("prepass_winding", "scene_tiles", "blur_chunk", "pool_rows", "winding")
+        for k in ("prepass_winding", "scene_tiles", "blur_chunk", "pool_rows", "winding",
+                  "part_entry", "part_exit")
     }
     sources = {
         "prepass_winding": ("prepass.cu", "svgrasterize_tpu/ops/fused_exec.py:443"),
@@ -2643,6 +2915,8 @@ def main() -> int:
         "blur_chunk": ("blur_chunk.cu", "svgrasterize_tpu/ops/filter_batch.py:396"),
         "pool_rows": ("pool_rows.cu", "svgrasterize_tpu/render_plan.py:2092"),
         "winding": ("winding.cu", "svgrasterize_tpu/ops/pallas_coverage.py:36"),
+        "part_entry": ("part_io.cu", None),
+        "part_exit": ("part_io.cu", None),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -3,9 +3,9 @@
 The batched render path (SVG -> scene -> host lowering -> device executor
 -> PNG, isolation passes and pattern paints included) and the interpreter
 (Scene.render, which batches its lowerable group runs through the batched
-path) run on a CUDA card through five hand-written kernels
-(ops/fused_exec.py, csrc/), and on the CPU through their plain PyTorch
-versions (ops/batch_exec.py, ops/filter_batch.py, ops/coverage.py).  The
+path) run on a CUDA card through hand-written kernels (ops/fused_exec.py,
+csrc/), and on the CPU through their plain PyTorch versions
+(ops/batch_exec.py, ops/filter_batch.py, ops/coverage.py, ops/part_io.py).  The
 package imports torch and never jax.
 """
 

@@ -152,6 +152,37 @@ int svgr_pool_rows(float* pool, int pool_rows, const float* src, int src_rows,
                    const int* src_idx, const int* dst_idx, int n, int tile,
                    cudaStream_t stream);
 
+// A filter part's entry: the chain's two seeds from its pass rows.
+//   rows: (n_rows, tile, tile, 4) f32 premultiplied, the part's rows of the
+//         level's canvas; slots: (span tiles,) int32, each span tile's row
+//         (-1: none, zeros), row-major over nsj tiles a row;
+//   the crop: span pixels [r0, r0 + h) x [c0, c0 + w);
+//   gamma: 0 none, 1 sRGB -> linear, 2 linear -> sRGB (the chain's
+//   colorspace against the canvas's); amask: (4,) f32 SourceAlpha's mask;
+//   graphic: (h, w, 4) f32 straight alpha; alpha: (h, w, 4) f32, the
+//   canvas alpha times amask.
+// tile is 16, 32, 64 or 128.
+int svgr_part_entry(const float* rows, int n_rows, const int* slots, int nsj,
+                    int r0, int c0, int h, int w, int gamma,
+                    const float* amask, float* graphic, float* alpha, int tile,
+                    cudaStream_t stream);
+
+// A filter part's exit: the chain's result, converted to premultiplied
+// alpha in the canvas's colorspace, placed on a zero out span and clamped
+// to [0, 1], written as out tiles into pool rows.
+//   result: (h, w, channels) f32 by its strides (in floats), channels 1 or
+//           4; pre_alpha: its alpha mode; gamma as above (4 channels only);
+//   off_r, off_c: its offset in the out span of ntj tiles a row and
+//   span_tiles tiles;
+//   pool[dst_idx[i]] = out-span tile src_idx[i], for i < n, in place;
+//   indices outside [0, span_tiles) / [0, pool_rows) are skipped.
+// tile is 16, 32, 64 or 128.
+int svgr_part_exit(float* pool, int pool_rows, const float* result, int h,
+                   int w, int channels, int stride_r, int stride_c,
+                   int stride_ch, int pre_alpha, int gamma, int off_r,
+                   int off_c, int ntj, int span_tiles, const int* src_idx,
+                   const int* dst_idx, int n, int tile, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -242,18 +242,26 @@ class Filter(NamedTuple):
              for kind, attrs, _inputs in self.filters],
         )
 
-    def __call__(self, transform: Transform, source: Layer,
-                 consts: "FilterConsts | None" = None) -> Layer:
-        """Run the chain on `source`; consts: prepare(transform, device)
-        made beforehand (made here when None)."""
-        if consts is None:
-            consts = self.prepare(transform, source.image.device)
+    def seeds(self, source: Layer, consts: "FilterConsts") -> tuple:
+        """The chain's first two stack entries made from `source`:
+        SourceAlpha (its alpha times consts.amask, premultiplied) and
+        SourceGraphic (straight alpha), both in the chain's colorspace."""
         linear = self.linear
         alpha = Layer(
             source.image[..., -1:] * consts.amask, source.offset, pre_alpha=True,
             linear_rgb=linear,
         )
-        stack = [alpha, source.convert(pre_alpha=False, linear_rgb=linear)]
+        return alpha, source.convert(pre_alpha=False, linear_rgb=linear)
+
+    def __call__(self, transform: Transform, source: Layer,
+                 consts: "FilterConsts | None" = None, seeds: tuple | None = None) -> Layer:
+        """Run the chain on `source`; consts: prepare(transform, device)
+        made beforehand (made here when None); seeds: seeds(source, consts)
+        made beforehand (made here when None)."""
+        if consts is None:
+            consts = self.prepare(transform, source.image.device)
+        linear = self.linear
+        stack = list(self.seeds(source, consts) if seeds is None else seeds)
         regions = (*self.regions, *([None] * (len(self.filters) - len(self.regions))))
         for (kind, attrs, inputs), region, const in zip(self.filters, regions,
                                                         consts.primitives):

@@ -50,6 +50,13 @@ _SIGNATURES = {
         _vp, _int, _vp,
     ),
     "svgr_pool_rows": (_vp, _int, _vp, _int, _vp, _vp, _int, _int, _vp),
+    "svgr_part_entry": (
+        _vp, _int, _vp, _int, _int, _int, _int, _int, _int, _vp, _vp, _vp, _int, _vp,
+    ),
+    "svgr_part_exit": (
+        _vp, _int, _vp, _int, _int, _int, _int, _int, _int, _int, _int, _int, _int,
+        _int, _int, _vp, _vp, _int, _int, _vp,
+    ),
 }
 
 

@@ -46,7 +46,7 @@ def _part_spec(part, grid_w: int, viewport, t_size: int):
     """Host metadata for one batchable part, or None to keep it per-part.
 
     Mirrors the crop/offset arithmetic of the per-part path
-    (render_plan._apply_part_filter + Layer.convolve) exactly: the
+    (ops/part_io.crop_window + Layer.convolve) exactly: the
     reference's `int(x - k/2)` blur placement is truncation-sensitive,
     so both paths must feed the same origins to the same formula.
     """

@@ -1,13 +1,13 @@
 """Wrappers of the hand-written CUDA kernels (csrc/prepass.cu, csrc/scene.cu,
-csrc/blur_chunk.cu, csrc/pool_rows.cu, csrc/winding.cu).
+csrc/blur_chunk.cu, csrc/pool_rows.cu, csrc/winding.cu, csrc/part_io.cu).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches its kernel on PyTorch's current stream through the ctypes
 library (ops/cuda_lib.py) and raises if the launch returns a CUDA error.
 Tensors on the CPU go to the kernel's plain PyTorch version
-(ops/batch_exec.py, ops/filter_batch.apply_level, ops/coverage.winding)
-instead; that is the only case that does.  A tensor on any other device
-raises.
+(ops/batch_exec.py, ops/filter_batch.apply_level, ops/coverage.winding,
+ops/part_io.py) instead; that is the only case that does.  A tensor on any
+other device raises.
 
 Each wrapper counts its kernel launches in its `launches` attribute, so a
 run can show that its main path went through the kernels
@@ -26,7 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import batch_exec, coverage, filter_batch
+from ..core.layer import Layer
+from . import batch_exec, coverage, filter_batch, part_io
 from .batch_exec import MAX_STOPS, N_FPARAMS, N_IPARAMS, SMALL_SEGS, DevicePlan
 
 # tile sizes the kernels are instantiated for (a template parameter)
@@ -267,6 +268,99 @@ def pool_rows(pool, src, src_idx, dst_idx):
 
 pool_rows.launches = 0
 
+
+def _gamma(source_linear: bool, target_linear: bool) -> int:
+    """csrc/part_io.cu's colorspace step: 0 none, 1 to linear, 2 to sRGB."""
+    if source_linear == target_linear:
+        return 0
+    return 1 if target_linear else 2
+
+
+def part_entry(canvas, part, viewport, linear_rgb: bool, t_size: int):
+    """A filter part's seeds (SourceAlpha, SourceGraphic) as Filter.seeds
+    makes them from its source crop: canvas (R, T, T, 4) f32 holds the
+    level's pass rows in the canvas's state (premultiplied, linear_rgb);
+    part a render_plan._PartFilter.  One launch writes both images."""
+    device = canvas.device
+    if not _kernel_device(device, "part_entry"):
+        return part_io.part_entry(canvas, part, viewport, linear_rgb, t_size)
+    t = t_size
+    if t not in KERNEL_TILES:
+        raise ValueError(f"part_entry: tile {t} not in {KERNEL_TILES}")
+    f32 = torch.float32
+    _check(canvas, "canvas", f32, (None, t, t, 4), device)
+    first, count = part.rows
+    if first < 0 or count < 0 or first + count > canvas.shape[0]:
+        raise ValueError(f"part_entry: rows {part.rows} of a canvas of {canvas.shape[0]}")
+    _si0, _sj0, nsi, nsj = part.span
+    _check(part.slots, "slots", torch.int32, (nsi * nsj,), device)
+    amask = part.consts.amask
+    _check(amask, "amask", f32, (4,), device)
+    (r0, r1, c0, c1), offset = part_io.crop_window(part, viewport, t)
+    rows, cols = range(nsi * t)[r0:r1], range(nsj * t)[c0:c1]  # slice bounds
+    h, w = len(rows), len(cols)
+    graphic = torch.empty((h, w, 4), dtype=f32, device=device)
+    alpha = torch.empty((h, w, 4), dtype=f32, device=device)
+    linear = part.flt.linear
+    if h and w:
+        from . import cuda_lib
+
+        lib = cuda_lib.load()
+        rc = lib.svgr_part_entry(
+            canvas[first:].data_ptr(), count, part.slots.data_ptr(), nsj,
+            rows.start, cols.start, h, w, _gamma(linear_rgb, linear), amask.data_ptr(),
+            graphic.data_ptr(), alpha.data_ptr(), t, _stream(device),
+        )
+        _raise_on(rc, "part_entry")
+        part_entry.launches += 1
+    return (Layer(alpha, offset, pre_alpha=True, linear_rgb=linear),
+            Layer(graphic, offset, pre_alpha=False, linear_rgb=linear))
+
+
+part_entry.launches = 0
+
+
+def part_exit(pool, result: Layer, part, viewport, linear_rgb: bool, t_size: int):
+    """Write a filter part's chain result into its pool rows in place, as
+    ops/part_io.part_exit does; returns pool.  result: the chain's Layer in
+    any alpha mode and colorspace, 1 or 4 channels, any strides."""
+    device = pool.device
+    if not _kernel_device(device, "part_exit"):
+        return part_io.part_exit(pool, result, part, viewport, linear_rgb, t_size)
+    t = t_size
+    if t not in KERNEL_TILES:
+        raise ValueError(f"part_exit: tile {t} not in {KERNEL_TILES}")
+    _check(pool, "pool", torch.float32, (None, t, t, 4), device)
+    image = result.image
+    if image.device != device or image.dtype != torch.float32 or image.dim() != 3 \
+            or image.shape[2] not in (1, 4):
+        raise ValueError(f"part_exit: result {tuple(image.shape)} {image.dtype} on"
+                         f" {image.device}, expected (h, w, 1 or 4) f32 on {device}")
+    n = part.src_idx.shape[0]
+    _check(part.src_idx, "src_idx", torch.int32, (n,), device)
+    _check(part.dst_idx, "dst_idx", torch.int32, (n,), device)
+    if n == 0:
+        return pool
+    _di0, _dj0, nti, ntj = part.out
+    off_r, off_c = part_io.exit_offset(result, part, viewport, t)
+    h, w, channels = image.shape
+    gamma = _gamma(result.linear_rgb, linear_rgb) if channels == 4 else 0
+    from . import cuda_lib
+
+    lib = cuda_lib.load()
+    rc = lib.svgr_part_exit(
+        pool.data_ptr(), pool.shape[0], image.data_ptr(), h, w, channels,
+        *image.stride(), int(result.pre_alpha), gamma, off_r, off_c, ntj, nti * ntj,
+        part.src_idx.data_ptr(), part.dst_idx.data_ptr(), n, t, _stream(device),
+    )
+    _raise_on(rc, "part_exit")
+    part_exit.launches += 1
+    return pool
+
+
+part_exit.launches = 0
+
+
 def winding(lines, height: int, width: int):
     """Winding field (height, width) f32 of one edge list (S, 4) f32 in
     image pixel coordinates (rows a0, a1, b0, b1; zero rows are padding).
@@ -473,7 +567,8 @@ def _uniform_batch(n: int, segs: int, height: int, width: int, device) -> Windin
     )
 
 
-KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding)
+KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding, part_entry,
+           part_exit)
 
 
 def reset_launch_counts() -> None:

@@ -1975,6 +1975,7 @@ class _PartFilter(NamedTuple):
     rows: tuple  # (first, count) of its rows in the level's canvas
     span: tuple  # (si0, sj0, nsi, nsj): its source tiles' span, in tiles
     local: torch.Tensor  # (count,) int64: each source row's tile in the span
+    slots: torch.Tensor  # (nsi * nsj,) int32: each span tile's source row, -1 for none
     out: tuple  # (di0, dj0, nti, ntj): its out tiles' span, in tiles
     consts: Any  # flt.prepare(transform, device)
     src_idx: torch.Tensor  # (n_out,) int32: each out tile's row in the out span
@@ -1996,6 +1997,8 @@ def _upload_part_filter(part, grid_w: int, dst: range, device) -> _PartFilter:
     flt, transform, content_bbox = part["post"]
     span, local = _tile_span(part["src_tiles"], grid_w)
     out, out_local = _tile_span(part["out_tiles"], grid_w)
+    slots = np.full(span[2] * span[3], -1)
+    slots[local] = np.arange(len(local))
 
     def rows(values, dtype):
         return torch.as_tensor(np.asarray(values, dtype), device=device)
@@ -2003,7 +2006,8 @@ def _upload_part_filter(part, grid_w: int, dst: range, device) -> _PartFilter:
     return _PartFilter(
         flt=flt, transform=transform, content_bbox=tuple(content_bbox),
         rows=(int(part["row_start"]), int(part["n_rows"])), span=span,
-        local=rows(local, np.int64), out=out, consts=flt.prepare(transform, device),
+        local=rows(local, np.int64), slots=rows(slots, np.int32), out=out,
+        consts=flt.prepare(transform, device),
         src_idx=rows(out_local, np.int32), dst_idx=rows(list(dst), np.int32),
     )
 
@@ -2094,18 +2098,21 @@ class _Ops(NamedTuple):
     execute: Any  # (DevicePlan, pool | None) -> canvas tiles
     blur: Any  # (canvas, BlurLevel, tile, linear_rgb) -> the level's out-span tiles
     pool_rows: Any  # (pool, src, src_idx, dst_idx) -> pool, in place
+    part_entry: Any  # (canvas, _PartFilter, viewport, linear_rgb, tile) -> its seeds
+    part_exit: Any  # (pool, result, _PartFilter, viewport, linear_rgb, tile) -> pool
 
 
 # the kernel wrappers (plain versions for CPU tensors only), and the plain
 # PyTorch versions on any device: the oracle the kernels are held against
 KERNEL_OPS = _Ops(fused_exec.execute_items_fused, fused_exec.blur_chunk,
-                  fused_exec.pool_rows)
+                  fused_exec.pool_rows, fused_exec.part_entry, fused_exec.part_exit)
 
 
 def _plain_ops() -> _Ops:
-    from .ops import filter_batch
+    from .ops import filter_batch, part_io
 
-    return _Ops(be.execute_items, filter_batch.apply_level, be._pool_rows)
+    return _Ops(be.execute_items, filter_batch.apply_level, be._pool_rows,
+                part_io.part_entry, part_io.part_exit)
 
 
 def new_pool(program: DeviceProgram):
@@ -2154,63 +2161,31 @@ def _apply_group_post(canvas, pool, level: _Level, viewport, linear_rgb, t_size,
     """A level's post stage: its new rows written into the pool in place.
 
     One pool_rows launch per output block: the level's plain pass rows
-    (straight from the canvas), each filter part's output tiles, and the
-    out tiles of all its blur chunks (one blur launch, picked by the
-    packed level's out_idx).  This replaces the JAX package's out-tile
-    gather, row concatenation, permutation and level update.
+    (straight from the canvas) and the out tiles of all its blur chunks
+    (one blur launch, picked by the packed level's out_idx); each filter
+    part's exit writes its own out tiles.  This replaces the JAX package's
+    out-tile gather, row concatenation, permutation and level update.
     """
     if level.copy_rows is not None:
         ops.pool_rows(pool, canvas, *level.copy_rows)
     for part in level.filters:
-        tiles = _apply_part_filter(canvas, part, viewport, linear_rgb, t_size)
-        ops.pool_rows(pool, tiles, part.src_idx, part.dst_idx)
+        _apply_part_filter(canvas, pool, part, viewport, linear_rgb, t_size, ops)
     if level.blur is not None:
         tiles = ops.blur(canvas, level.blur, t_size, linear_rgb)
         ops.pool_rows(pool, tiles, level.blur.out_idx, level.blur.pool_idx)
 
 
-def _apply_part_filter(canvas, part: _PartFilter, viewport, linear_rgb, t_size):
-    """Filter post-op for one merged-group part: assemble the pass's rendered
-    rows into an image, run the filter chain, cut the grown result into the
-    tiles of its out span, row-major (the part's out tiles are rows
-    part.src_idx of it)."""
-    from .core.layer import merge_at
-
-    v0, v1 = int(viewport[0]), int(viewport[1])
+def _apply_part_filter(canvas, pool, part: _PartFilter, viewport, linear_rgb, t_size,
+                       ops: _Ops):
+    """Filter post-op for one merged-group part: its entry makes the chain's
+    seeds from the pass's rendered rows, the chain runs, and its exit
+    writes the grown result's out tiles into the part's pool rows."""
     with profiling.stage("post.assemble"):
-        first, count = part.rows
-        rows = canvas[first : first + count]
-
-        # assemble the span of source tiles into one image
-        si0, sj0, nsi, nsj = part.span
-        span = canvas.new_zeros((nsi * nsj, t_size, t_size, 4))
-        span[part.local] = rows
-        image = span.reshape(nsi, nsj, t_size, t_size, 4)
-        image = image.permute(0, 2, 1, 3, 4).reshape(nsi * t_size, nsj * t_size, 4)
-
-        # bbox-tight source crop: the filter sees the same layer origin the
-        # reference's interpreter would, so truncation-sensitive placement
-        # (blur offsets) matches bit-for-bit
-        content_bbox = part.content_bbox
-        or_, oc = si0 * t_size, sj0 * t_size  # span origin in canvas pixels
-        r0 = max(content_bbox[0] - v0 - or_, 0)
-        c0 = max(content_bbox[1] - v1 - oc, 0)
-        r1 = min(content_bbox[2] - v0 - or_, nsi * t_size)
-        c1 = min(content_bbox[3] - v1 - oc, nsj * t_size)
-        crop = image[r0:r1, c0:c1]
-        layer = Layer(crop, (v0 + or_ + r0, v1 + oc + c0), pre_alpha=True,
-                      linear_rgb=linear_rgb)
+        alpha, graphic = ops.part_entry(canvas, part, viewport, linear_rgb, t_size)
     with profiling.stage("post.chain"):
-        filtered = part.flt(part.transform, layer, part.consts).convert(
-            pre_alpha=True, linear_rgb=linear_rgb)
-
+        result = part.flt(part.transform, graphic, part.consts, seeds=(alpha, graphic))
     with profiling.stage("post.retile"):
-        di0, dj0, nti, ntj = part.out
-        dst = canvas.new_zeros((nti * t_size, ntj * t_size, 4))
-        dst = merge_at(dst, filtered.image,
-                       (filtered.x - v0 - di0 * t_size, filtered.y - v1 - dj0 * t_size))
-        tiles = dst.reshape(nti, t_size, ntj, t_size, 4).permute(0, 2, 1, 3, 4)
-        return tiles.reshape(nti * ntj, t_size, t_size, 4).contiguous()
+        ops.part_exit(pool, result, part, viewport, linear_rgb, t_size)
 
 
 def execute_lowered(lowered, device="cuda", viewport=(0, 0), linear_rgb: bool = False,
@@ -2221,7 +2196,8 @@ def execute_lowered(lowered, device="cuda", viewport=(0, 0), linear_rgb: bool = 
     viewport: the canvas origin (v0, v1) in device pixels (filter
     post-ops place their output by it).  On a CUDA device the plan runs
     through the CUDA kernels (prepass winding, scene tiles, blur chunk,
-    pool rows); on the CPU through their plain PyTorch versions.  mesh:
+    pool rows, filter part entry and exit); on the CPU through their plain
+    PyTorch versions.  mesh:
     shard every item stream over it by tiles (upload_program).
     """
     return run_program(upload_program(lowered, device, mesh), viewport, linear_rgb)
