@@ -2287,8 +2287,10 @@ class CompiledScene:
         On a CUDA device each frame is a replay of the captured graph on the
         current stream (a failed capture raises); on the CPU each frame runs
         render_tiles.  Single-device plans only.  With tracing on (utils.
-        profiling) a request span covers the call and a request.replay span
-        its frames; off, each costs one check of the flag."""
+        profiling) a request span covers the call, a request.replay span its
+        frames and a request.output span the copy of the frame it returns
+        (the card's; the CPU's frames are the caller's already); off, they
+        cost one check of the flag."""
         if self._mesh is not None:
             raise ValueError("render_tiles_many: single-device plans only")
         k = int(k)
@@ -2310,12 +2312,14 @@ class CompiledScene:
         if not profiling.tracing:
             for _ in range(k):
                 self._graph.replay()
-        else:
-            with profiling.stage("request.replay"):
-                for _ in range(k):
-                    self._graph.replay()
+            self.replays += k
+            return self._frame.clone()
+        with profiling.stage("request.replay"):
+            for _ in range(k):
+                self._graph.replay()
         self.replays += k
-        return self._frame.clone()
+        with profiling.stage("request.output"):
+            return self._frame.clone()
 
     def _capture(self) -> None:
         """Capture one frame in a CUDA graph, after one eager frame on a
@@ -2341,11 +2345,13 @@ class CompiledScene:
 
     def render_many(self, k: int) -> Layer:
         """k frames (render_tiles_many); the last one as a Layer, in the same
-        request span."""
+        request span, its copy into the layer under a request.output span."""
         if not profiling.tracing:
             return self._layer(self.render_tiles_many(k))
         with profiling.stage("request", request=True):
-            return self._layer(self.render_tiles_many(k))
+            tiles = self.render_tiles_many(k)
+            with profiling.stage("request.output"):
+                return self._layer(tiles)
 
     def _layer(self, tiles) -> Layer:
         return tiles_to_layer(tiles, self._lowered.grid, self._lowered.tile, self._viewport,

@@ -87,7 +87,8 @@ def test_spans_on_nest_as_the_code_does(doc_scene, tracing, mirrors):
     spans = profiling.spans()
     by_id = {s.id: s for s in spans}
     names = [s.name for s in spans]
-    assert LOWERING | POST | PRIMITIVES | {"request", "request.replay"} <= set(names)
+    assert LOWERING | POST | PRIMITIVES | {"request", "request.replay", "request.output"} \
+        <= set(names)
     # each span mirrored by one record_function of its name
     assert sorted(mirrors) == sorted(names)
 
@@ -106,7 +107,7 @@ def test_spans_on_nest_as_the_code_does(doc_scene, tracing, mirrors):
             assert parent(s) == "request.replay"
         elif s.name.startswith("fe."):
             assert parent(s) == "post.chain"
-        elif s.name == "request.replay":
+        elif s.name in ("request.replay", "request.output"):
             assert parent(s) == "request"
         else:
             assert s.name in ("lower", "request") and s.parent is None
@@ -140,12 +141,82 @@ def test_a_request_id_is_shared_by_its_spans(doc_scene, tracing):
     requests = [s for s in spans if s.name == "request"]
     # render_many opens the request; the render_tiles_many it calls opens none
     assert len(requests) == 3 and len({s.request for s in requests}) == 3
-    for req in requests:
+    # render_many's frames, then their copy into the layer; on the CPU
+    # render_tiles_many returns its frame's own tiles, which it does not copy
+    children = [["request.replay", "request.output"]] * 2 + [["request.replay"]]
+    for req, expected in zip(requests, children):
         inside = [s for s in spans if req.start_ns <= s.start_ns and s.end_ns <= req.end_ns
                   and s is not req]
-        assert [s.name for s in inside if s.parent == req.id] == ["request.replay"]
+        assert [s.name for s in inside if s.parent == req.id] == expected
         assert inside and all(s.request == req.request for s in inside)
     assert all(s.request is None for s in spans if s.name in LOWERING)
+
+
+class _Graph:
+    """A captured frame's stand-in: replay() writes the frame's tiles into
+    the captured output, as a CUDA graph's replay does."""
+
+    def __init__(self, out, tiles):
+        self.out, self.tiles, self.replays = out, tiles, 0
+
+    def replay(self):
+        self.out.copy_(self.tiles)
+        self.replays += 1
+
+
+def _as_on_the_card(cs, monkeypatch):
+    """cs's requests take the card's path (graph replays, then the frame's
+    copy) with the CPU's tensors."""
+    tiles = cs.render_tiles()
+    monkeypatch.setattr(cs, "_program", cs._program._replace(device=torch.device("cuda")))
+    cs._frame = torch.zeros_like(tiles)
+    cs._graph = _Graph(cs._frame, tiles)
+    return cs._graph
+
+
+def test_render_many_with_tracing_off_opens_no_span(doc_scene, monkeypatch, mirrors):
+    profiling.reset()
+    cs = _serve(doc_scene)
+    opened = []
+    monkeypatch.setattr(profiling._Stage, "__enter__", lambda self: opened.append(self.name))
+    graph = _as_on_the_card(cs, monkeypatch)
+    layers = [cs.render_many(1) for _ in range(2)]
+    layers.append(cs.render_many(3))
+    assert graph.replays == 5 and cs.replays == 5
+    assert opened == [] and mirrors == [] and profiling.spans() == []
+    # each request's layer is a copy of its own, not the captured frame
+    assert layers[0].image.data_ptr() != layers[1].image.data_ptr()
+    assert all(layer.image.untyped_storage().data_ptr() != cs._frame.data_ptr()
+               for layer in layers)
+
+
+def test_the_card_path_copies_its_output_under_request_output(doc_scene, monkeypatch):
+    cs = _serve(doc_scene)
+    graph = _as_on_the_card(cs, monkeypatch)
+    off = cs.render_many(2)
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        on = cs.render_many(2)
+        tiles = cs.render_tiles_many(1)
+    finally:
+        profiling.enable(False)
+    spans = profiling.spans()
+    profiling.reset()
+    assert graph.replays == 5
+    torch.testing.assert_close(on.image, off.image, rtol=0, atol=0)
+    torch.testing.assert_close(tiles, cs._frame, rtol=0, atol=0)
+    assert tiles.data_ptr() != cs._frame.data_ptr()
+    requests = [s for s in spans if s.name == "request"]
+    assert len(requests) == 2
+    # render_many: the replays, the frame's clone, the layer's copy;
+    # render_tiles_many: the replays and the clone
+    children = [["request.replay", "request.output", "request.output"],
+                ["request.replay", "request.output"]]
+    for req, expected in zip(requests, children):
+        got = [s for s in spans if s.parent == req.id]
+        assert [s.name for s in got] == expected
+        assert all(s.request == req.request for s in got)
 
 
 def test_reset_clears_the_record(doc_scene, tracing):
