@@ -19,8 +19,11 @@ on one interpreter render's masks, one launch per mask and all of them in
 one batched launch, which must agree bit for bit, on random lists up to
 2,048 edges at 1024 x 1024 and on the adversarial lists of
 tests/test_torch_winding.py at 1024 x 1024 and 4096 wide, repeated calls
-bit-equal and back-to-back batches through the pinned staging buffers),
-then drives the port's main paths: the
+bit-equal and back-to-back batches through the pinned staging buffers;
+the untile kernel on random bit patterns at every tile, its viewport
+cropped, one pixel, one tile wide and one high, bit for bit, and timed at
+the benchmark cells' frames beside the clone and the permuting copy it
+replaces), then drives the port's main paths: the
 CLI renders a generated pass-free 1,536-draw document at 1488 x 1488 and a
 compiled scene of it serves 5 frames at 3840 x 3840; the CLI renders a
 generated document full of isolation passes (group opacity, masks, clips,
@@ -94,6 +97,9 @@ SERVE_MANY = 50  # frames per timed render_tiles_many call
 # material-design-sized flat document parsed at 7680 wide, at the tile its
 # _pick_tile takes there (the smallest whose grid has at most 4,096 tiles)
 EIGHT_K_WIDTH, EIGHT_K_TILE = 7680, 128
+# (h, w, T) of the benchmark cells' frames: material_3840, material_7680,
+# icons_3840 (whose grid of 31 tile rows is cropped to 985)
+UNTILE_FRAMES = ((3840, 3840, 64), (7680, 7680, 128), (985, 3840, 32))
 SHARDS = 4  # shards of the single-process mesh, all on the one card
 FILL_PATHS, FILL_SEGS, FILL_SIZE = 64, 64, 256  # the fill batch: paths x edges at size^2
 WINDING_CASES, WINDING_WIDE = 1024, 4096  # the winding kernel's adversarial lists
@@ -108,7 +114,7 @@ SPRITE_ICONS, SPRITE_COLS = ATLAS_DOCS * ATLAS_COPIES, 7
 TRACE_KERNELS = {"prepass_kernel": "prepass_winding", "scene_kernel": "scene_tiles",
                  "blur_level_kernel": "blur_chunk", "pool_rows_kernel": "pool_rows",
                  "winding_kernel": "winding", "part_entry_kernel": "part_entry",
-                 "part_exit_kernel": "part_exit"}
+                 "part_exit_kernel": "part_exit", "untile_kernel": "untile"}
 
 # Least-time bounds (NVIDIA's H100 SXM data sheet, full 700 W power limit):
 # device memory rate and the f32 rate outside the tensor cores.
@@ -1513,6 +1519,95 @@ def _serve_8k_phase(torch, doc: str, fonts, dev, path_launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def untile_cases(t: int) -> dict:
+    """{name: (grid_h, grid_w, h, w)} of the untile checks at tile t: the
+    whole grid, the viewport cropped in rows, in columns and in both, one
+    pixel, a grid one tile wide and one tile high."""
+    return {
+        "full": (3, 4, 3 * t, 4 * t),
+        "rows_cropped": (3, 4, 3 * t - 5, 4 * t),
+        "cols_cropped": (3, 4, 3 * t, 3 * t + t // 2 + 1),
+        "both_cropped": (3, 4, 2 * t + 1, 3 * t + 7),
+        "one_pixel": (2, 3, 1, 1),
+        "one_tile_wide": (3, 1, 3 * t - 2, t - 3),
+        "one_tile_high": (1, 5, t - 1, 5 * t),
+    }
+
+
+def _untile_phase(torch, dev) -> dict:
+    """The untile kernel (csrc/untile.cu) against tiles_to_layer's plain
+    reshape, permute and crop (on the CPU), bit for bit, on random bit
+    patterns at every tile (untile_cases), one launch each; then at the
+    benchmark cells' frames (UNTILE_FRAMES) bit for bit against the
+    permuting copy on the card, and its time alone by CUDA events beside
+    its bound (one read and one write of the viewport's pixels), the
+    frame's clone and the permuting copy (the two copies a served request
+    made before it).  Returns the 8K frame's numbers for the summary."""
+    from svgrasterize_tpu_torch.ops import fused_exec
+    from svgrasterize_tpu_torch.render_plan import tiles_to_layer
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def random_tiles(n: int, t: int):
+        raw = torch.randint(0, 256, (n * t * t * 16,), dtype=torch.uint8, device=dev,
+                            generator=gen)
+        return raw.view(torch.float32).view(n, t, t, 4)
+
+    checked, timed = 0, {}
+    for t in fused_exec.KERNEL_TILES:
+        for grid_h, grid_w, h, w in untile_cases(t).values():
+            tiles = random_tiles(grid_h * grid_w, t)
+            before = fused_exec.untile.launches
+            got = fused_exec.untile(tiles, (grid_h, grid_w), t, (0, 0, h, w))
+            want = tiles_to_layer(tiles.cpu(), (grid_h, grid_w), t, (0, 0, h, w), False).image
+            torch.cuda.synchronize()
+            if fused_exec.untile.launches != before + 1 or not torch.equal(_bits(got.cpu()),
+                                                                           _bits(want)):
+                raise RuntimeError(f"untile at T={t} on {grid_h} x {grid_w} tiles, viewport"
+                                   f" {h} x {w}, differs from the plain path")
+            checked += 1
+    _say("untile", f"{checked} cases at T={list(fused_exec.KERNEL_TILES)} equal the plain"
+                   " reshape, permute and crop bit for bit, one launch each")
+    for h, w, t in UNTILE_FRAMES:
+        grid_h, grid_w = -(-h // t), -(-w // t)
+        tiles = random_tiles(grid_h * grid_w, t)
+
+        def untile():
+            return fused_exec.untile(tiles, (grid_h, grid_w), t, (0, 0, h, w))
+
+        def permuted():
+            canvas = tiles.reshape(grid_h, grid_w, t, t, 4).permute(0, 2, 1, 3, 4)
+            return canvas.reshape(grid_h * t, grid_w * t, 4)
+
+        got, want = untile(), permuted()[:h, :w]
+        same = _bits(got) == _bits(want)
+        # the largest difference where the bits differ (inf where either is NaN)
+        err = float(torch.where(same, 0.0, (got - want).abs().nan_to_num(
+            nan=float("inf"))).max())
+        if not bool(same.all()):
+            raise RuntimeError(f"untile at {w} x {h} T={t} differs from the permuting copy"
+                               f" (max abs err {err})")
+        del got, want, same
+        bound = _bound(2 * h * w * 16, 0)["bound_ms"]
+        ms = {"untile": _time_ms(torch, untile, 20), "clone": _time_ms(torch, tiles.clone, 20),
+              "permuting copy": _time_ms(torch, permuted, 20)}
+        host_ahead = _device_ms(torch, untile, 20)
+        timed[(h, w, t)] = dict(max_abs_err=err, ms=ms["untile"],
+                                plain_ms=ms["permuting copy"], bound_ms=bound,
+                                bound_by="bytes", library_ms=None)
+        _say("untile", (
+            f"{w}x{h} T={t} ({grid_h}x{grid_w} tiles): bound {bound:.6f} ms (one read and one"
+            f" write of the viewport's pixels); " + "; ".join(
+                f"{name} {v:.4f} ms ({bound / v * 100:.1f} % of the bound)"
+                for name, v in ms.items())
+            + f"; untile with the host ahead {host_ahead:.4f} ms; the clone and the permuting"
+            f" copy together {ms['clone'] + ms['permuting copy']:.4f} ms"))
+        del tiles
+    torch.cuda.empty_cache()
+    return timed[(EIGHT_K_WIDTH, EIGHT_K_WIDTH, EIGHT_K_TILE)]
+
+
 def _png_pixels(tiles, lowered, viewport) -> np.ndarray:
     """The CLI's output pixels for canvas tiles: merge onto a transparent
     canvas, straight sRGB, 8 bits."""
@@ -1965,7 +2060,7 @@ def main() -> int:
         _say("build", f"{name}: {regs} registers, {spilled} bytes spilled, {smem} bytes"
                       " static shared memory")
 
-    results = {}
+    results = {"untile": _untile_phase(torch, dev)}
     with tempfile.TemporaryDirectory() as tmp:
         doc = os.path.join(tmp, "flat.svg")
         with open(doc, "w", encoding="utf-8") as f:
@@ -2907,7 +3002,7 @@ def main() -> int:
     launches = {
         k: sum(counts[k] for counts in path_launches.values())
         for k in ("prepass_winding", "scene_tiles", "blur_chunk", "pool_rows", "winding",
-                  "part_entry", "part_exit")
+                  "part_entry", "part_exit", "untile")
     }
     sources = {
         "prepass_winding": ("prepass.cu", "svgrasterize_tpu/ops/fused_exec.py:443"),
@@ -2917,6 +3012,7 @@ def main() -> int:
         "winding": ("winding.cu", "svgrasterize_tpu/ops/pallas_coverage.py:36"),
         "part_entry": ("part_io.cu", None),
         "part_exit": ("part_io.cu", None),
+        "untile": ("untile.cu", None),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -183,6 +183,15 @@ int svgr_part_exit(float* pool, int pool_rows, const float* result, int h,
                    int off_c, int ntj, int span_tiles, const int* src_idx,
                    const int* dst_idx, int n, int tile, cudaStream_t stream);
 
+// The viewport's pixels of a frame's canvas tiles as a row-major layer.
+//   tiles: (grid_h * grid_w, tile, tile, 4) f32, tile (i, j) at i * grid_w
+//          + j, 16-byte aligned;
+//   out:   (h, w, 4) f32, pixel (y, x) = tiles[(y / tile) * grid_w + x /
+//          tile][y % tile][x % tile]; h <= grid_h * tile, w <= grid_w * tile.
+// tile is 16, 32, 64 or 128.
+int svgr_untile(const float* tiles, int grid_w, int tile, float* out, int h,
+                int w, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

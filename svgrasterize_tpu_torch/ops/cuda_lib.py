@@ -57,6 +57,7 @@ _SIGNATURES = {
         _vp, _int, _vp, _int, _int, _int, _int, _int, _int, _int, _int, _int, _int,
         _int, _int, _vp, _vp, _int, _int, _vp,
     ),
+    "svgr_untile": (_vp, _int, _int, _vp, _int, _int, _vp),
 }
 
 

@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels (csrc/prepass.cu, csrc/scene.cu,
-csrc/blur_chunk.cu, csrc/pool_rows.cu, csrc/winding.cu, csrc/part_io.cu).
+csrc/blur_chunk.cu, csrc/pool_rows.cu, csrc/winding.cu, csrc/part_io.cu,
+csrc/untile.cu).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches its kernel on PyTorch's current stream through the ctypes
@@ -7,7 +8,8 @@ library (ops/cuda_lib.py) and raises if the launch returns a CUDA error.
 Tensors on the CPU go to the kernel's plain PyTorch version
 (ops/batch_exec.py, ops/filter_batch.apply_level, ops/coverage.winding,
 ops/part_io.py) instead; that is the only case that does.  A tensor on any
-other device raises.
+other device raises.  `untile` takes CUDA tensors alone: its plain version
+is render_plan.tiles_to_layer's reshape and permute, which calls it.
 
 Each wrapper counts its kernel launches in its `launches` attribute, so a
 run can show that its main path went through the kernels
@@ -567,8 +569,45 @@ def _uniform_batch(n: int, segs: int, height: int, width: int, device) -> Windin
     )
 
 
+def untile(tiles, grid, tile: int, viewport):
+    """The viewport's pixels (h, w, 4) f32 of a frame's canvas tiles
+    (grid_h * grid_w, T, T, 4) f32 on the card, in one launch.
+
+    grid: (grid_h, grid_w) tiles; viewport: (v0, v1, h, w) with h <=
+    grid_h * T and w <= grid_w * T.  The result is a contiguous tensor of its
+    own, never a view of tiles.  A tensor on the CPU raises:
+    render_plan.tiles_to_layer untiles it by reshape, permute and crop,
+    this kernel's oracle."""
+    device = tiles.device
+    if not _kernel_device(device, "untile"):
+        raise ValueError("untile: the tiles must be on a CUDA device")
+    t = int(tile)
+    if t not in KERNEL_TILES:
+        raise ValueError(f"untile: tile {t} not in {KERNEL_TILES}")
+    grid_h, grid_w = (int(g) for g in grid)
+    h, w = int(viewport[2]), int(viewport[3])
+    if not (0 <= h <= grid_h * t and 0 <= w <= grid_w * t):
+        raise ValueError(f"untile: a {h} x {w} viewport on {grid_h} x {grid_w} tiles of {t}")
+    _check(tiles, "tiles", torch.float32, (grid_h * grid_w, t, t, 4), device)
+    if tiles.data_ptr() % 16:
+        raise ValueError("untile: tiles must be 16-byte aligned")
+    out = torch.empty((h, w, 4), dtype=torch.float32, device=device)
+    if h and w:
+        from . import cuda_lib
+
+        lib = cuda_lib.load()
+        rc = lib.svgr_untile(tiles.data_ptr(), grid_w, t, out.data_ptr(), h, w,
+                             _stream(device))
+        _raise_on(rc, "untile")
+        untile.launches += 1
+    return out
+
+
+untile.launches = 0
+
+
 KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding, part_entry,
-           part_exit)
+           part_exit, untile)
 
 
 def reset_launch_counts() -> None:

@@ -2204,15 +2204,19 @@ def execute_lowered(lowered, device="cuda", viewport=(0, 0), linear_rgb: bool = 
 
 
 def tiles_to_layer(tiles, grid, tile: int, viewport, linear_rgb: bool) -> Layer:
-    """(num_tiles, T, T, 4) canvas tiles -> the viewport-sized Layer."""
-    grid_h, grid_w = grid
-    canvas = tiles.reshape(grid_h, grid_w, tile, tile, 4).permute(0, 2, 1, 3, 4)
-    canvas = canvas.reshape(grid_h * tile, grid_w * tile, 4)
-    v0, v1, h, w = viewport
-    return Layer(
-        canvas[: int(h), : int(w)], (int(v0), int(v1)), pre_alpha=True,
-        linear_rgb=linear_rgb,
-    )
+    """(num_tiles, T, T, 4) canvas tiles -> the viewport-sized Layer.
+
+    On a CUDA device one untile kernel copies the viewport's pixels into a
+    contiguous (h, w, 4) tensor of the layer's own; on the CPU a reshape,
+    permute and crop, the kernel's oracle."""
+    v0, v1, h, w = (int(v) for v in viewport)
+    if tiles.is_cuda:
+        image = fused_exec.untile(tiles, grid, tile, viewport)
+    else:
+        grid_h, grid_w = grid
+        canvas = tiles.reshape(grid_h, grid_w, tile, tile, 4).permute(0, 2, 1, 3, 4)
+        image = canvas.reshape(grid_h * tile, grid_w * tile, 4)[:h, :w]
+    return Layer(image, (v0, v1), pre_alpha=True, linear_rgb=linear_rgb)
 
 
 def render_fast(scene, transform: Transform, viewport, linear_rgb: bool = False,
@@ -2252,7 +2256,7 @@ class CompiledScene:
         self._pool = new_pool(self._program)
         self._graph = None  # torch.cuda.CUDAGraph of one frame, captured on first use
         self._frame = None  # the tiles that graph writes
-        self.replays = 0  # frames replayed from the graph
+        self.replays = 0  # frames requests rendered (on the card, graph replays)
         self.frame_launches = None  # kernel launches of the captured frame, by kernel
 
     @property
@@ -2285,41 +2289,46 @@ class CompiledScene:
         a tensor the caller owns.
 
         On a CUDA device each frame is a replay of the captured graph on the
-        current stream (a failed capture raises); on the CPU each frame runs
-        render_tiles.  Single-device plans only.  With tracing on (utils.
-        profiling) a request span covers the call, a request.replay span its
-        frames and a request.output span the copy of the frame it returns
-        (the card's; the CPU's frames are the caller's already); off, they
-        cost one check of the flag."""
+        current stream (a failed capture raises), and the graph's output is
+        cloned for the caller; on the CPU each frame runs render_tiles.
+        Single-device plans only.  With tracing on (utils.profiling) a
+        request span covers the call, a request.replay span its frames and
+        a request.output span the clone (the card's; the CPU's frames are
+        the caller's already); off, they cost one check of the flag each."""
+        k = self._frame_count(k, "render_tiles_many")
+        with profiling.stage("request", request=True):
+            tiles = self._replay(k)
+            if self._program.device.type != "cuda":
+                return tiles
+            with profiling.stage("request.output"):
+                return tiles.clone()
+
+    def _frame_count(self, k: int, what: str) -> int:
         if self._mesh is not None:
-            raise ValueError("render_tiles_many: single-device plans only")
+            raise ValueError(f"{what}: single-device plans only")
         k = int(k)
         if k < 1:
-            raise ValueError(f"render_tiles_many: k must be >= 1, got {k}")
-        if not profiling.tracing:
-            return self._frames(k)
-        with profiling.stage("request", request=True):
-            return self._frames(k)
+            raise ValueError(f"{what}: k must be >= 1, got {k}")
+        return k
 
-    def _frames(self, k: int):
+    def _replay(self, k: int):
+        """Run k frames under a request.replay span and count them in
+        replays, on either device; the last one's tiles: on the CPU the
+        caller's own, on the card the graph's output, which the next replay
+        overwrites."""
         if self._program.device.type != "cuda":
             with profiling.stage("request.replay"):
                 for _ in range(k):
                     tiles = self.render_tiles()
+            self.replays += k
             return tiles
         if self._graph is None:
             self._capture()
-        if not profiling.tracing:
-            for _ in range(k):
-                self._graph.replay()
-            self.replays += k
-            return self._frame.clone()
         with profiling.stage("request.replay"):
             for _ in range(k):
                 self._graph.replay()
         self.replays += k
-        with profiling.stage("request.output"):
-            return self._frame.clone()
+        return self._frame
 
     def _capture(self) -> None:
         """Capture one frame in a CUDA graph, after one eager frame on a
@@ -2344,12 +2353,14 @@ class CompiledScene:
         return self._layer(self.render_tiles())
 
     def render_many(self, k: int) -> Layer:
-        """k frames (render_tiles_many); the last one as a Layer, in the same
-        request span, its copy into the layer under a request.output span."""
-        if not profiling.tracing:
-            return self._layer(self.render_tiles_many(k))
+        """k frames, as render_tiles_many renders them; the last one as a
+        Layer of its own.  On the card the layer is copied straight out of
+        the graph's output (tiles_to_layer's one untile launch), which is
+        not cloned first.  Spans as render_tiles_many's: request, its
+        request.replay, then the layer's copy under request.output."""
+        k = self._frame_count(k, "render_many")
         with profiling.stage("request", request=True):
-            tiles = self.render_tiles_many(k)
+            tiles = self._replay(k)
             with profiling.stage("request.output"):
                 return self._layer(tiles)
 

@@ -139,7 +139,7 @@ def test_a_request_id_is_shared_by_its_spans(doc_scene, tracing):
     cs.render_tiles_many(1)
     spans = profiling.spans()
     requests = [s for s in spans if s.name == "request"]
-    # render_many opens the request; the render_tiles_many it calls opens none
+    # render_many and render_tiles_many each open one request
     assert len(requests) == 3 and len({s.request for s in requests}) == 3
     # render_many's frames, then their copy into the layer; on the CPU
     # render_tiles_many returns its frame's own tiles, which it does not copy
@@ -182,7 +182,8 @@ def test_render_many_with_tracing_off_opens_no_span(doc_scene, monkeypatch, mirr
     graph = _as_on_the_card(cs, monkeypatch)
     layers = [cs.render_many(1) for _ in range(2)]
     layers.append(cs.render_many(3))
-    assert graph.replays == 5 and cs.replays == 5
+    # the CPU's request in _serve, then the five replays
+    assert graph.replays == 5 and cs.replays == 1 + 5
     assert opened == [] and mirrors == [] and profiling.spans() == []
     # each request's layer is a copy of its own, not the captured frame
     assert layers[0].image.data_ptr() != layers[1].image.data_ptr()
@@ -209,9 +210,9 @@ def test_the_card_path_copies_its_output_under_request_output(doc_scene, monkeyp
     assert tiles.data_ptr() != cs._frame.data_ptr()
     requests = [s for s in spans if s.name == "request"]
     assert len(requests) == 2
-    # render_many: the replays, the frame's clone, the layer's copy;
-    # render_tiles_many: the replays and the clone
-    children = [["request.replay", "request.output", "request.output"],
+    # render_many: the replays, then the layer's one copy out of the frame;
+    # render_tiles_many: the replays and the clone the caller owns
+    children = [["request.replay", "request.output"],
                 ["request.replay", "request.output"]]
     for req, expected in zip(requests, children):
         got = [s for s in spans if s.parent == req.id]
