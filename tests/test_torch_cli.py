@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import io
 
-import numpy as np
 import pytest
 import torch
 
@@ -23,59 +22,44 @@ from svgrasterize_tpu_torch.core.layer import Layer, merge_at
 from svgrasterize_tpu_torch.core.transform import Transform
 from svgrasterize_tpu_torch.render_plan import render_fast
 
-from test_torch_lowering import DOCS, torch_scene, viewport_of
-
-
-def _jax_png(svg_path, out_path, monkeypatch, *extra):
-    # the JAX CLI defaults SVGR_TILE to 32 in the process environment;
-    # monkeypatch sets it first and removes it afterwards
-    monkeypatch.setenv("SVGR_TILE", "32")
-    assert jax_main([svg_path, out_path, "--platform", "cpu", *extra]) == 0
-    with open(out_path, "rb") as f:
-        return read_png(f.read())
-
-
-def _assert_png_close(got, ref):
-    assert got.shape == ref.shape
-    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
-    assert int(diff.max()) <= 1
-    assert float((diff == 0).mean()) >= 0.999
+from torch_support import FLAT_DOCS, assert_png_close, jax_png, torch_scene, viewport_of
 
 
 @pytest.mark.parametrize("name", ["features", "flat"])
 def test_cli_and_render_fast_match_jax_cli(name, tmp_path, monkeypatch):
     svg = tmp_path / "doc.svg"
-    svg.write_text(DOCS[name])
-    ref = _jax_png(str(svg), str(tmp_path / "jax.png"), monkeypatch)
+    svg.write_text(FLAT_DOCS[name])
+    ref = jax_png(str(svg), str(tmp_path / "jax.png"), monkeypatch)
 
     assert torch_main([str(svg), str(tmp_path / "port.png"), "--device", "cpu"]) == 0
     with open(tmp_path / "port.png", "rb") as f:
-        _assert_png_close(read_png(f.read()), ref)
+        assert_png_close(read_png(f.read()), ref)
 
     # render_fast directly, through the CLI's canvas merge and PNG encoder
-    vp = viewport_of(DOCS[name])
-    layer, _hull = render_fast(torch_scene(DOCS[name]), Transform().matrix(0, 1, 0, 1, 0, 0), vp,
+    vp = viewport_of(FLAT_DOCS[name])
+    layer, _hull = render_fast(torch_scene(FLAT_DOCS[name]),
+                               Transform().matrix(0, 1, 0, 1, 0, 0), vp,
                                tile=32, device="cpu")
     canvas = merge_at(torch.zeros((vp[2], vp[3], 4)), layer.image, layer.offset)
     png = Layer(canvas, (0, 0), True, False).write_png(io.BytesIO()).getvalue()
-    _assert_png_close(read_png(png), ref)
+    assert_png_close(read_png(png), ref)
 
 
 def test_cli_background_and_width_match_jax_cli(tmp_path, monkeypatch):
     svg = tmp_path / "doc.svg"
-    svg.write_text(DOCS["solids"])
+    svg.write_text(FLAT_DOCS["solids"])
     args = ["-bg", "#fafad2", "-w", "144"]
-    ref = _jax_png(str(svg), str(tmp_path / "jax.png"), monkeypatch, *args)
+    ref = jax_png(str(svg), str(tmp_path / "jax.png"), monkeypatch, *args)
     assert torch_main([str(svg), str(tmp_path / "port.png"), "--device", "cpu", *args]) == 0
     with open(tmp_path / "port.png", "rb") as f:
         got = read_png(f.read())
     assert got.shape == (96, 144, 4)
-    _assert_png_close(got, ref)
+    assert_png_close(got, ref)
 
 
 def test_cli_as_path_matches_jax_cli(tmp_path, monkeypatch, capsys):
     svg = tmp_path / "doc.svg"
-    svg.write_text(DOCS["features"])
+    svg.write_text(FLAT_DOCS["features"])
     monkeypatch.setenv("SVGR_TILE", "32")
     assert jax_main([str(svg), "-", "--as-path", "--platform", "cpu"]) == 0
     ref = capsys.readouterr().out
@@ -85,7 +69,7 @@ def test_cli_as_path_matches_jax_cli(tmp_path, monkeypatch, capsys):
 
 def test_cli_without_a_card_raises(tmp_path):
     svg = tmp_path / "doc.svg"
-    svg.write_text(DOCS["solids"])
+    svg.write_text(FLAT_DOCS["solids"])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -98,7 +82,7 @@ def test_cli_without_document_size_raises(tmp_path, monkeypatch):
     (The name is the one this test had while that route raised.)"""
     path = tmp_path / "shape.path"
     path.write_text("M2 2 L30 4 L16 28 Z")
-    ref = _jax_png(str(path), str(tmp_path / "jax.png"), monkeypatch)
+    ref = jax_png(str(path), str(tmp_path / "jax.png"), monkeypatch)
     assert torch_main([str(path), str(tmp_path / "port.png"), "--device", "cpu"]) == 0
     with open(tmp_path / "port.png", "rb") as f:
-        _assert_png_close(read_png(f.read()), ref)
+        assert_png_close(read_png(f.read()), ref)

@@ -34,7 +34,7 @@ from svgrasterize_tpu_torch.render_plan import (
     plan_from_lowered,
 )
 
-from test_torch_lowering import DOCS, jax_lower, torch_lower, viewport_of
+from torch_support import FLAT_DOCS, jax_lower, torch_lower, viewport_of
 
 # The closed form is the same f32 arithmetic in both packages; only the
 # order of the per-pixel sums over edges differs.
@@ -232,7 +232,7 @@ def test_scene_executor_matches_jax(name, tile, collapse, monkeypatch):
     kernel (fused_exec.py:587-588) after it.  The port follows the XLA
     executor; the difference stays below the tolerance on these plans.
     """
-    svg = DOCS[name]
+    svg = FLAT_DOCS[name]
     monkeypatch.setenv("SVGR_COLLAPSE", collapse)
     lowered, ref = _jax_canvas(svg, tile, "0", monkeypatch)
     _lowered2, interp = _jax_canvas(svg, tile, "interp", monkeypatch)
@@ -263,7 +263,7 @@ def _assert_features(lowered, canvas):
 
 
 def test_default_plan_has_collapse_fields():
-    lowered = torch_lower(DOCS["features"], 32)
+    lowered = torch_lower(FLAT_DOCS["features"], 32)
     plan = plan_from_lowered(lowered, "cpu")
     assert plan.field is not None
     assert (plan.iparams[:, batch_exec.I_FIELD] >= 0).any()
@@ -273,10 +273,10 @@ def test_default_plan_has_collapse_fields():
 def test_port_lowering_and_execution_match_jax(name, tile, monkeypatch):
     """The whole port (its own lowering, plan upload and executor wrapper)
     against the JAX package end to end on the CPU."""
-    _lowered, ref = _jax_canvas(DOCS[name], tile, "0", monkeypatch)
-    got = execute_lowered(torch_lower(DOCS[name], tile), "cpu").numpy()
+    _lowered, ref = _jax_canvas(FLAT_DOCS[name], tile, "0", monkeypatch)
+    got = execute_lowered(torch_lower(FLAT_DOCS[name], tile), "cpu").numpy()
     assert np.abs(got - ref).max() <= EXEC_TOL
-    assert viewport_of(DOCS[name])[2] <= 128
+    assert viewport_of(FLAT_DOCS[name])[2] <= 128
 
 
 def test_kernel_tiles_are_the_tiles_the_sources_take():

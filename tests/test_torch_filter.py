@@ -32,6 +32,8 @@ from svgrasterize_tpu_torch.ops import blur as t_blur
 from svgrasterize_tpu_torch.ops import filter_batch as t_fb
 from svgrasterize_tpu_torch.ops import fused_exec
 
+import torch_support  # noqa: F401 (the CPU thread budget)
+
 FILTER_TOL = 1e-5
 CHUNK_TOL = 2e-6
 

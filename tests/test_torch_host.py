@@ -34,7 +34,7 @@ from svgrasterize_tpu_torch.render_plan import (
     render_fast,
 )
 
-from test_torch_lowering import DOCS, J_FONTS, T_FONTS, jax_lower
+from torch_support import FLAT_DOCS, T_FONTS, jax_fonts, jax_lower
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -85,8 +85,8 @@ def test_png_bytes_match():
 
 @pytest.mark.parametrize("name", ["features", "flat"])
 def test_scene_repr_and_to_path_match(name):
-    js, j_ids, j_size = j_scene_from_str(DOCS[name], fonts=J_FONTS)
-    ts, t_ids, t_size = t_scene_from_str(DOCS[name], fonts=T_FONTS)
+    js, j_ids, j_size = j_scene_from_str(FLAT_DOCS[name], fonts=jax_fonts())
+    ts, t_ids, t_size = t_scene_from_str(FLAT_DOCS[name], fonts=T_FONTS)
     assert repr(js) == repr(ts)
     assert j_size == t_size and sorted(j_ids) == sorted(t_ids)
     jp = js.to_path(JTransform().matrix(0, 1, 0, 1, 0, 0))

@@ -46,25 +46,12 @@ from svgrasterize_tpu_torch.ops import gradient as t_grad
 from svgrasterize_tpu_torch.paint import RasterImage as TRasterImage
 from svgrasterize_tpu_torch.scene import RENDER_FILL
 
-from test_torch_cli import _assert_png_close, _jax_png
-from test_torch_lowering import jax_scene, torch_scene, viewport_of
-from test_torch_passes import _assert_items_equal
+from torch_support import interpret_pallas  # noqa: F401 (a fixture)
+from torch_support import (assert_items_equal, assert_png_close, jax_png, jax_scene, torch_scene,
+                           viewport_of)
 
 TOL = 1e-5
 SWAP = (0, 1, 0, 1, 0, 0)  # images are indexed (row, col) = (y, x)
-
-
-@pytest.fixture()
-def interpret_pallas(monkeypatch):
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-
-    def interp(*args, **kwargs):
-        kwargs["interpret"] = True
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(j_pc.pl, "pallas_call", interp)
 
 
 @pytest.fixture()
@@ -580,7 +567,7 @@ def test_pattern_lowering_and_executor_match_jax(name, monkeypatch):
     _assert_close(got.patterns, ref.patterns)
     # collapse fields gather from the atlas: within the atlas tolerance
     ref_items = {k: v for k, v in ref.items.items() if k != "field"}
-    _assert_items_equal(ref_items, {k: v for k, v in got.items.items() if k != "field"})
+    assert_items_equal(ref_items, {k: v for k, v in got.items.items() if k != "field"})
     if "field" in ref.items:
         _assert_close(got.items["field"], ref.items["field"])
     for a, b in zip(ref.bigs, got.bigs, strict=True):
@@ -616,8 +603,8 @@ def test_cli_matches_jax_cli(case, tmp_path, monkeypatch):
     else:
         src = tmp_path / "doc.path"
         src.write_text("M4 4 L40 8 L30 36 Z M12 12 C 50 0, 0 50, 44 40 Z")
-    ref = _jax_png(str(src), str(tmp_path / "jax.png"), monkeypatch, *extra)
+    ref = jax_png(str(src), str(tmp_path / "jax.png"), monkeypatch, *extra)
     out = tmp_path / "port.png"
     assert torch_main([str(src), str(out), "--device", "cpu", *extra]) == 0
     with open(out, "rb") as f:
-        _assert_png_close(read_png(f.read()), ref)
+        assert_png_close(read_png(f.read()), ref)

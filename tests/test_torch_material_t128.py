@@ -20,6 +20,8 @@ from svgrasterize_tpu_torch.core.transform import Transform
 from svgrasterize_tpu_torch.frontend.svg import scene_from_str
 from svgrasterize_tpu_torch.render_plan import CompiledScene, lower_scene
 
+import torch_support  # noqa: F401 (the CPU thread budget)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_DRAWS = 200
 SEEDS = (2 ** 31 + 11, 2 ** 32 + 5)

@@ -19,6 +19,8 @@ from svgrasterize_tpu_torch.parallel import distributed
 from svgrasterize_tpu_torch.parallel.distributed import DRYRUN_DOC, spawn_local
 from svgrasterize_tpu_torch.render_plan import execute_lowered, lower_scene
 
+import torch_support  # noqa: F401 (the CPU thread budget)
+
 
 def test_distributed_two_processes():
     line = spawn_local(num_processes=2, devices_per_process=2, timeout=300, device="cpu")

@@ -35,6 +35,7 @@ from svgrasterize_tpu_torch.parallel.mesh import Mesh, make_mesh
 from svgrasterize_tpu_torch.utils.stress import edge_batch
 
 from test_parallel_scene import CLUSTERED_DOC, DOC, MULTIPASS_DOC, POOL_HEAVY_DOC
+import torch_support  # noqa: F401 (the CPU thread budget)
 
 EXEC_TOL = 1e-5  # the bound the executors hold against the JAX package
 SHARD_TOL = 1e-6  # sharded against unsharded: the same kernels on the same items

@@ -29,8 +29,7 @@ from svgrasterize_tpu_torch.core.layer import Layer, merge_at
 from svgrasterize_tpu_torch.filter import Filter
 from svgrasterize_tpu_torch.ops import fused_exec, part_io
 
-from test_torch_lowering import torch_lower
-from test_torch_passes import DOCS
+from torch_support import PASS_DOCS, torch_lower
 
 TILES = (16, 32, 64, 128)
 PARTS = 24  # random parts a case
@@ -112,7 +111,7 @@ def test_part_exit_matches_merge_at_on_zeros(state, canvas_linear):
 
 
 def _slot_docs():
-    docs = dict(DOCS, pass_doc=chip_smoke.pass_doc(200, 400, 0))
+    docs = dict(PASS_DOCS, pass_doc=chip_smoke.pass_doc(200, 400, 0))
     return sorted(docs.items())
 
 

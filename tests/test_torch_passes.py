@@ -31,105 +31,13 @@ from svgrasterize_tpu_torch.core.transform import Transform as TTransform
 from svgrasterize_tpu_torch.ops import batch_exec, filter_batch, fused_exec
 from svgrasterize_tpu_torch.utils.stress import stress_doc
 
-from test_filter_batch import BLURS, MIXED
-from test_torch_cli import _assert_png_close, _jax_png
-from test_torch_lowering import jax_lower, torch_lower, torch_scene, viewport_of
+from test_filter_batch import BLURS
+from torch_support import (PASS_DOCS, PASSES, assert_items_equal, assert_png_close, jax_lower,
+                           jax_png, jax_scene, torch_lower, torch_scene, viewport_of)
 
 # The bound tests/test_fused_exec.py holds between the JAX package's own
 # two executors.
 EXEC_TOL = 1e-5
-
-# the mask and filter documents of tests/test_render_plan.py
-MASKS = """<svg xmlns="http://www.w3.org/2000/svg" width="128" height="96">
-  <defs>
-    <mask id="m">
-      <rect x="0" y="0" width="128" height="96" fill="white"/>
-      <circle cx="64" cy="48" r="30" fill="black"/>
-    </mask>
-    <mask id="grad_m">
-      <linearGradient id="mg"><stop offset="0" stop-color="white"/>
-      <stop offset="1" stop-color="black"/></linearGradient>
-      <rect x="0" y="0" width="128" height="96" fill="url(#mg)"/>
-    </mask>
-  </defs>
-  <rect x="8" y="8" width="112" height="80" fill="tomato" mask="url(#m)"/>
-  <circle cx="64" cy="48" r="20" fill="navy" mask="url(#grad_m)"/>
-</svg>"""
-
-MASK_HIDES = """<svg xmlns="http://www.w3.org/2000/svg" width="96" height="96">
-  <defs><mask id="m"><rect x="0" y="0" width="48" height="96" fill="white"/></mask></defs>
-  <rect x="0" y="0" width="96" height="96" fill="lime" mask="url(#m)"/>
-</svg>"""
-
-FILTER_BLUR_OFFSET = """<svg xmlns="http://www.w3.org/2000/svg" width="160" height="120">
-  <defs>
-    <filter id="b"><feGaussianBlur stdDeviation="3"/></filter>
-    <filter id="o"><feOffset dx="6" dy="4"/></filter>
-  </defs>
-  <rect x="30" y="30" width="60" height="40" fill="#2266aa" filter="url(#b)"/>
-  <circle cx="120" cy="60" r="22" fill="tomato" filter="url(#o)"/>
-</svg>"""
-
-DROP_SHADOW_CHAIN = """<svg xmlns="http://www.w3.org/2000/svg" width="128" height="128">
-  <defs>
-    <filter id="ds">
-      <feGaussianBlur in="SourceAlpha" stdDeviation="2" result="blur"/>
-      <feOffset in="blur" dx="4" dy="4" result="shadow"/>
-      <feMerge><feMergeNode in="shadow"/><feMergeNode in="SourceGraphic"/></feMerge>
-    </filter>
-  </defs>
-  <rect x="24" y="24" width="64" height="64" fill="gold" filter="url(#ds)"/>
-</svg>"""
-
-# every isolation construct at once: nested group opacity, an anti-aliased
-# clip over a multi-draw group, a nested clip, a bbox-units clip, a
-# gradient mask, a lone blur and a SourceAlpha blur, a drop shadow, a
-# colour-matrix / composite chain, and a filter inside an opacity group
-# (two dependency levels)
-PASSES = """<svg xmlns='http://www.w3.org/2000/svg' width='160' height='128'>
-<defs>
- <linearGradient id='mg' x1='0' y1='0' x2='1' y2='0.3'>
-  <stop offset='0' stop-color='white'/><stop offset='1' stop-color='#202020'/></linearGradient>
- <mask id='m'><rect x='80' y='56' width='80' height='72' fill='url(#mg)'/></mask>
- <clipPath id='c'><circle cx='44' cy='40' r='30'/></clipPath>
- <clipPath id='c2'><rect x='20' y='60' width='60' height='50' transform='rotate(12 50 85)'/></clipPath>
- <clipPath id='cb' clipPathUnits='objectBoundingBox'><circle cx='0.5' cy='0.5' r='0.45'/></clipPath>
- <filter id='b'><feGaussianBlur stdDeviation='2 3'/></filter>
- <filter id='ba'><feGaussianBlur in='SourceAlpha' stdDeviation='1.5'/></filter>
- <filter id='sh'><feDropShadow dx='3' dy='2' stdDeviation='1.5' flood-color='#203040'
-   flood-opacity='0.6'/></filter>
- <filter id='cm'><feColorMatrix type='saturate' values='0.3' result='s'/>
-   <feComposite in='s' in2='SourceGraphic' operator='atop'/></filter>
-</defs>
-<rect x='0' y='0' width='160' height='128' fill='#f0f0e0'/>
-<g opacity='0.6'><rect x='8' y='8' width='50' height='40' fill='#d03020'/>
- <circle cx='50' cy='40' r='18' fill='#2050d0'/>
- <g opacity='0.5'><rect x='30' y='30' width='30' height='30' fill='#20a040'/>
-  <circle cx='60' cy='55' r='10' fill='#a0a020'/></g></g>
-<g clip-path='url(#c)'><rect x='10' y='10' width='60' height='40' fill='#802080'/>
- <circle cx='60' cy='50' r='20' fill='#208080' fill-opacity='0.7'/></g>
-<g clip-path='url(#c2)'><g clip-path='url(#c)'><rect x='20' y='20' width='60' height='90'
- fill='#c08020'/></g><circle cx='40' cy='90' r='14' fill='#4040c0'/></g>
-<g clip-path='url(#cb)'><rect x='100' y='8' width='50' height='40' fill='#10a0c0'/>
- <rect x='110' y='18' width='30' height='30' fill='#c01060' fill-opacity='0.6'/></g>
-<rect x='86' y='60' width='70' height='60' fill='#3070c0' mask='url(#m)'/>
-<g opacity='0.8'><rect x='96' y='70' width='30' height='20' fill='#e02080' filter='url(#b)'/>
- <circle cx='130' cy='100' r='12' fill='#20e080'/></g>
-<ellipse cx='30' cy='112' rx='18' ry='9' fill='#a050a0' filter='url(#ba)'/>
-<rect x='64' y='96' width='24' height='20' fill='#f0a020' filter='url(#sh)'/>
-<circle cx='140' cy='40' r='12' fill='#e04010' filter='url(#cm)'/>
-</svg>"""
-
-DOCS = {
-    "blurs": BLURS,
-    "mixed": MIXED,
-    "masks": MASKS,
-    "mask_hides": MASK_HIDES,
-    "filter_blur_offset": FILTER_BLUR_OFFSET,
-    "drop_shadow_chain": DROP_SHADOW_CHAIN,
-    "passes": PASSES,
-    "stress": stress_doc(200, 256),
-}
 
 
 def test_stress_doc_is_the_jax_packages():
@@ -137,17 +45,8 @@ def test_stress_doc_is_the_jax_packages():
     assert stress_doc(37, 128, seed=5) == j_stress_doc(37, 128, seed=5)
 
 
-def _assert_items_equal(ref: dict, got: dict):
-    ref_keys = {k for k in ref if not k.startswith("_")}
-    assert set(got) == ref_keys
-    for key in sorted(ref_keys):
-        a, b = np.asarray(ref[key]), got[key]
-        assert a.dtype == b.dtype and a.shape == b.shape, key
-        assert np.array_equal(a, b), key
-
-
 def _assert_lowered_equal(ref, got):
-    _assert_items_equal(ref.items, got.items)
+    assert_items_equal(ref.items, got.items)
     assert tuple(got.grid) == tuple(ref.grid) and got.tile == ref.tile
     for a, b in zip(ref.bigs, got.bigs, strict=True):
         assert a.dtype == b.dtype and np.array_equal(a, b)
@@ -155,7 +54,7 @@ def _assert_lowered_equal(ref, got):
     assert np.array_equal(got.hull.raw_points, ref.hull.raw_points)
     assert len(got.groups) == len(ref.groups)
     for ga, gb in zip(ref.groups, got.groups):
-        _assert_items_equal(ga["items"], gb["items"])
+        assert_items_equal(ga["items"], gb["items"])
         for a, b in zip(ga["bigs"], gb["bigs"], strict=True):
             assert np.array_equal(a, b)
         assert np.array_equal(ga["clips"], gb["clips"])
@@ -181,10 +80,10 @@ def _assert_lowered_equal(ref, got):
 
 
 @pytest.mark.parametrize("tile", [32, 64, 128])
-@pytest.mark.parametrize("name", sorted(DOCS))
+@pytest.mark.parametrize("name", sorted(PASS_DOCS))
 def test_pass_lowering_bit_identical(name, tile):
-    ref = jax_lower(DOCS[name], tile)
-    got = torch_lower(DOCS[name], tile)
+    ref = jax_lower(PASS_DOCS[name], tile)
+    got = torch_lower(PASS_DOCS[name], tile)
     assert ref is not None and got is not None
     assert ref.groups, "the document must lower to isolation passes"
     _assert_lowered_equal(ref, got)
@@ -209,7 +108,7 @@ def _jax_tiles(svg, tile, mode, monkeypatch):
     return np.asarray(jrp.execute_lowered(lowered, (0, 0), False))
 
 
-EXEC_CASES = [(name, "0") for name in sorted(DOCS)] + [
+EXEC_CASES = [(name, "0") for name in sorted(PASS_DOCS)] + [
     ("passes", "interp"), ("masks", "interp"), ("blurs", "interp"),
     ("stress", "interp"),
 ]
@@ -217,8 +116,8 @@ EXEC_CASES = [(name, "0") for name in sorted(DOCS)] + [
 
 @pytest.mark.parametrize("name,mode", EXEC_CASES)
 def test_execute_lowered_matches_jax(name, mode, monkeypatch):
-    ref = _jax_tiles(DOCS[name], 32, mode, monkeypatch)
-    got = trp.execute_lowered(torch_lower(DOCS[name], 32), "cpu").numpy()
+    ref = _jax_tiles(PASS_DOCS[name], 32, mode, monkeypatch)
+    got = trp.execute_lowered(torch_lower(PASS_DOCS[name], 32), "cpu").numpy()
     assert got.shape == ref.shape and np.isfinite(got).all()
     assert np.abs(got - ref).max() <= EXEC_TOL
 
@@ -228,8 +127,8 @@ def test_execute_lowered_at_tile_128_matches_jax(name, monkeypatch):
     """Tile 128 end to end: the port's lowering, its pass levels (blur
     levels and pool rows at T=128) and executors against the JAX package's
     XLA executor on its own plan."""
-    ref = _jax_tiles(DOCS[name], 128, "0", monkeypatch)
-    got = trp.execute_lowered(torch_lower(DOCS[name], 128), "cpu").numpy()
+    ref = _jax_tiles(PASS_DOCS[name], 128, "0", monkeypatch)
+    got = trp.execute_lowered(torch_lower(PASS_DOCS[name], 128), "cpu").numpy()
     assert got.shape == ref.shape and got.shape[1] == 128 and np.isfinite(got).all()
     assert np.abs(got - ref).max() <= EXEC_TOL
 
@@ -240,7 +139,7 @@ def test_port_executes_the_jax_plan(name, monkeypatch):
     (groups and blur chunks included; these documents have no per-part
     filter chain, whose Filter objects are the JAX package's)."""
     monkeypatch.setenv("SVGR_FUSED", "0")
-    lowered = jax_lower(DOCS[name], 32)
+    lowered = jax_lower(PASS_DOCS[name], 32)
     ref = np.asarray(jrp.execute_lowered(lowered, (0, 0), False))
     got = trp.execute_lowered(lowered, "cpu").numpy()
     assert np.abs(got - ref).max() <= EXEC_TOL
@@ -251,8 +150,6 @@ def test_linear_rgb_canvas_matches_jax(linear, monkeypatch):
     monkeypatch.setenv("SVGR_FUSED", "0")
     jtr = jrp.Transform().matrix(0, 1, 0, 1, 0, 0)
     vp = viewport_of(BLURS)
-    from test_torch_lowering import jax_scene
-
     ref = np.asarray(jrp.execute_lowered(
         jrp.lower_scene(jax_scene(BLURS), jtr, vp, linear, tile=32), (0, 0), linear))
     low = trp.lower_scene(torch_scene(BLURS), TTransform().matrix(0, 1, 0, 1, 0, 0),
@@ -319,11 +216,11 @@ def _pool_rows_against_pallas(t: int, monkeypatch):
 @pytest.mark.parametrize("name", ["passes", "blurs"])
 def test_cli_png_matches_jax_cli(name, tmp_path, monkeypatch):
     svg = tmp_path / "doc.svg"
-    svg.write_text(DOCS[name])
-    ref = _jax_png(str(svg), str(tmp_path / "jax.png"), monkeypatch)
+    svg.write_text(PASS_DOCS[name])
+    ref = jax_png(str(svg), str(tmp_path / "jax.png"), monkeypatch)
     assert torch_main([str(svg), str(tmp_path / "port.png"), "--device", "cpu"]) == 0
     with open(tmp_path / "port.png", "rb") as f:
-        _assert_png_close(read_png(f.read()), ref)
+        assert_png_close(read_png(f.read()), ref)
 
 
 def _clip_builder():
@@ -381,10 +278,10 @@ def test_interpreter_features_still_raise(svg, tmp_path, monkeypatch):
     assert np.abs(got - ref).max() <= EXEC_TOL
     path = tmp_path / "doc.svg"
     path.write_text(svg)
-    png = _jax_png(str(path), str(tmp_path / "jax.png"), monkeypatch)
+    png = jax_png(str(path), str(tmp_path / "jax.png"), monkeypatch)
     assert torch_main([str(path), str(tmp_path / "out.png"), "--device", "cpu"]) == 0
     with open(tmp_path / "out.png", "rb") as f:
-        _assert_png_close(read_png(f.read()), png)
+        assert_png_close(read_png(f.read()), png)
 
 
 # documents whose passes batch blur chunks at every tile size
@@ -392,7 +289,7 @@ CHUNK_DOCS = ["blurs", "filter_blur_offset", "mixed", "passes"]
 
 
 def _doc_chunks(name, tile):
-    chunks = [ck for g in torch_lower(DOCS[name], tile).groups for ck in g["_blur_batch"][0]]
+    chunks = [ck for g in torch_lower(PASS_DOCS[name], tile).groups for ck in g["_blur_batch"][0]]
     assert chunks
     return chunks
 
@@ -591,7 +488,7 @@ def test_level_packing_of_random_chunks(tile):
 def test_level_packing_of_document_levels(name):
     """Each level of the uploaded program packs its chunks as lowering
     built them, and writes the per-chunk loop's pool rows."""
-    lowered = torch_lower(DOCS[name], 32)
+    lowered = torch_lower(PASS_DOCS[name], 32)
     prog = trp.upload_program(lowered, "cpu")
     rng = np.random.default_rng(7)
     packed_levels = 0

@@ -30,6 +30,7 @@ from svgrasterize_tpu_torch.frontend.svg import scene_from_str as t_scene_from_s
 from svgrasterize_tpu_torch.parallel.mesh import make_mesh
 
 from test_render_many import MULTIPASS_DOC, PLAIN_DOC
+import torch_support  # noqa: F401 (the CPU thread budget)
 
 EXEC_TOL = 1e-5  # the bound the executors hold against the JAX package
 DOCS = {"plain": PLAIN_DOC, "multipass": MULTIPASS_DOC}

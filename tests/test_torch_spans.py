@@ -15,24 +15,15 @@ import torch
 
 from svgrasterize_tpu_torch import filter as filter_mod
 from svgrasterize_tpu_torch.cli import main as torch_main
-from svgrasterize_tpu_torch.core.transform import Transform
-from svgrasterize_tpu_torch.frontend.svg import scene_from_str
-from svgrasterize_tpu_torch.render_plan import CompiledScene, lower_scene
 from svgrasterize_tpu_torch.utils import profiling
 
 from chip_smoke import pass_doc
+from torch_support import SIZE, as_on_the_card, doc_scene, serve  # noqa: F401 (a fixture)
 
-SIZE = 256
 LOWERING = {"lower", "lower.build", "lower.pack", "lower.collapse", "lower.groups"}
 POST = {"post.assemble", "post.chain", "post.retile"}
 # the filter primitives pass_doc's chains use
 PRIMITIVES = {"fe.blur", "fe.offset", "fe.merge", "fe.color_matrix", "fe.composite"}
-
-
-@pytest.fixture(scope="module")
-def doc_scene():
-    scene, _ids, (w, h) = scene_from_str(pass_doc(96, SIZE, 0), None, SIZE, None)
-    return scene, (0, 0, int(h), int(w))
 
 
 @pytest.fixture
@@ -59,21 +50,10 @@ def mirrors(monkeypatch):
     return entered
 
 
-def _serve(doc_scene, requests: int = 1):
-    scene, viewport = doc_scene
-    lowered = lower_scene(scene, Transform().matrix(0, 1, 0, 1, 0, 0), viewport, False, 32,
-                          device="cpu")
-    assert lowered is not None and lowered.groups
-    cs = CompiledScene(lowered, viewport, False, device="cpu")
-    for _ in range(requests):
-        cs.render_many(1)
-    return cs
-
-
 def test_spans_off_record_nothing_and_mark_nothing(doc_scene, mirrors):
     profiling.reset()
     assert not profiling.tracing
-    cs = _serve(doc_scene)
+    cs = serve(doc_scene)
     cs.render_tiles_many(2)
     assert mirrors == []
     assert profiling.spans() == []
@@ -83,7 +63,7 @@ def test_spans_off_record_nothing_and_mark_nothing(doc_scene, mirrors):
 
 
 def test_spans_on_nest_as_the_code_does(doc_scene, tracing, mirrors):
-    _serve(doc_scene)
+    serve(doc_scene)
     spans = profiling.spans()
     by_id = {s.id: s for s in spans}
     names = [s.name for s in spans]
@@ -135,7 +115,7 @@ def test_spans_on_nest_as_the_code_does(doc_scene, tracing, mirrors):
 
 
 def test_a_request_id_is_shared_by_its_spans(doc_scene, tracing):
-    cs = _serve(doc_scene, requests=2)
+    cs = serve(doc_scene, requests=2)
     cs.render_tiles_many(1)
     spans = profiling.spans()
     requests = [s for s in spans if s.name == "request"]
@@ -152,37 +132,15 @@ def test_a_request_id_is_shared_by_its_spans(doc_scene, tracing):
     assert all(s.request is None for s in spans if s.name in LOWERING)
 
 
-class _Graph:
-    """A captured frame's stand-in: replay() writes the frame's tiles into
-    the captured output, as a CUDA graph's replay does."""
-
-    def __init__(self, out, tiles):
-        self.out, self.tiles, self.replays = out, tiles, 0
-
-    def replay(self):
-        self.out.copy_(self.tiles)
-        self.replays += 1
-
-
-def _as_on_the_card(cs, monkeypatch):
-    """cs's requests take the card's path (graph replays, then the frame's
-    copy) with the CPU's tensors."""
-    tiles = cs.render_tiles()
-    monkeypatch.setattr(cs, "_program", cs._program._replace(device=torch.device("cuda")))
-    cs._frame = torch.zeros_like(tiles)
-    cs._graph = _Graph(cs._frame, tiles)
-    return cs._graph
-
-
 def test_render_many_with_tracing_off_opens_no_span(doc_scene, monkeypatch, mirrors):
     profiling.reset()
-    cs = _serve(doc_scene)
+    cs = serve(doc_scene)
     opened = []
     monkeypatch.setattr(profiling._Stage, "__enter__", lambda self: opened.append(self.name))
-    graph = _as_on_the_card(cs, monkeypatch)
+    graph = as_on_the_card(cs, monkeypatch)
     layers = [cs.render_many(1) for _ in range(2)]
     layers.append(cs.render_many(3))
-    # the CPU's request in _serve, then the five replays
+    # the CPU's request in serve, then the five replays
     assert graph.replays == 5 and cs.replays == 1 + 5
     assert opened == [] and mirrors == [] and profiling.spans() == []
     # each request's layer is a copy of its own, not the captured frame
@@ -192,8 +150,8 @@ def test_render_many_with_tracing_off_opens_no_span(doc_scene, monkeypatch, mirr
 
 
 def test_the_card_path_copies_its_output_under_request_output(doc_scene, monkeypatch):
-    cs = _serve(doc_scene)
-    graph = _as_on_the_card(cs, monkeypatch)
+    cs = serve(doc_scene)
+    graph = as_on_the_card(cs, monkeypatch)
     off = cs.render_many(2)
     profiling.reset()
     profiling.enable(True)

@@ -28,6 +28,7 @@ from svgrasterize_tpu_torch.tools import spritify as t_spritify
 from svgrasterize_tpu_torch.tools import ttf2svg as t_ttf2svg
 
 from chip_smoke import tiny_ttf
+import torch_support  # noqa: F401 (the CPU thread budget)
 
 PNG_TOL = 1  # 8-bit steps
 

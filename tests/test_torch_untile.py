@@ -20,12 +20,11 @@ import pytest
 import torch
 
 from svgrasterize_tpu_torch.core.transform import Transform
-from svgrasterize_tpu_torch.frontend.svg import scene_from_str
 from svgrasterize_tpu_torch.ops import fused_exec
 from svgrasterize_tpu_torch.render_plan import CompiledScene, lower_scene, tiles_to_layer
 
-from chip_smoke import _bits, pass_doc, untile_cases
-from test_torch_spans import SIZE, _as_on_the_card, _serve
+from chip_smoke import _bits, untile_cases
+from torch_support import as_on_the_card, doc_scene, serve  # noqa: F401 (a fixture)
 
 TILES = fused_exec.KERNEL_TILES
 KINDS = sorted(untile_cases(16))  # viewports on a grid of tiles, by name
@@ -108,16 +107,10 @@ def test_untile_raises_on_what_the_kernel_does_not_take(fault, monkeypatch):
     assert fused_exec.untile.launches == before
 
 
-@pytest.fixture(scope="module")
-def doc_scene():
-    scene, _ids, (w, h) = scene_from_str(pass_doc(96, SIZE, 0), None, SIZE, None)
-    return scene, (0, 0, int(h), int(w))
-
-
 def test_render_many_copies_its_layer_out_of_the_frame_without_a_clone(doc_scene, monkeypatch):
-    cs = _serve(doc_scene)
+    cs = serve(doc_scene)
     want = cs.render()
-    _as_on_the_card(cs, monkeypatch)
+    as_on_the_card(cs, monkeypatch)
     cloned = []
     real_clone = torch.Tensor.clone
 
@@ -138,11 +131,11 @@ def test_render_many_copies_its_layer_out_of_the_frame_without_a_clone(doc_scene
     tiles = cs.render_tiles_many(2)
     assert cloned.count(frame) == 1
     assert tiles.data_ptr() != frame and torch.equal(_bits(tiles), _bits(cs._frame))
-    assert cs.replays == 1 + 6  # the CPU's request in _serve, then the replays
+    assert cs.replays == 1 + 6  # the CPU's request in serve, then the replays
 
 
 def test_requests_count_their_frames_whichever_method_serves_them(doc_scene):
-    cs = _serve(doc_scene)  # one render_many(1)
+    cs = serve(doc_scene)  # one render_many(1)
     cs.render_many(2)
     cs.render_tiles_many(3)
     cs.render_tiles()  # a frame outside any request

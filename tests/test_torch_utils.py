@@ -24,6 +24,8 @@ from svgrasterize_tpu_torch.core.layer import Layer as TLayer
 from svgrasterize_tpu_torch.utils import debug as t_debug
 from svgrasterize_tpu_torch.utils import profiling as t_prof
 
+import torch_support  # noqa: F401 (the CPU thread budget)
+
 CURVE = [[3.0, 4.0], [30.0, -5.0], [10.0, 45.0], [38.0, 36.0]]
 
 

@@ -30,7 +30,7 @@ from svgrasterize_tpu_torch.ops import coverage as t_cov
 from svgrasterize_tpu_torch.ops import fused_exec
 
 import chip_smoke
-from test_torch_interp import interpret_pallas  # noqa: F401 (a fixture)
+from torch_support import interpret_pallas  # noqa: F401 (a fixture)
 
 TOL = 1e-5
 KERNEL_SOURCE = Path(fused_exec.__file__).resolve().parent.parent / "csrc" / "winding.cu"
