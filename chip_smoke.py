@@ -14,7 +14,9 @@ scene kernel on random plans reaching every item kind at T = 16, 32, 64 and
 128; the blur-chunk kernel on a document level's chunks and on random
 chunks at every tile, each alone and packed into one level, one launch
 each; the filter parts' entry and exit kernels on every part of the
-icons_3840 benchmark frame and on random parts at every tile; the winding kernel
+icons_3840 benchmark frame and on random parts at every tile; the chain blur
+kernel on that frame's 8 drop-shadow blurs and on random layers and taps,
+both of its routes; the winding kernel
 on one interpreter render's masks, one launch per mask and all of them in
 one batched launch, which must agree bit for bit, on random lists up to
 2,048 edges at 1024 x 1024 and on the adversarial lists of
@@ -114,7 +116,8 @@ SPRITE_ICONS, SPRITE_COLS = ATLAS_DOCS * ATLAS_COPIES, 7
 TRACE_KERNELS = {"prepass_kernel": "prepass_winding", "scene_kernel": "scene_tiles",
                  "blur_level_kernel": "blur_chunk", "pool_rows_kernel": "pool_rows",
                  "winding_kernel": "winding", "part_entry_kernel": "part_entry",
-                 "part_exit_kernel": "part_exit", "untile_kernel": "untile"}
+                 "part_exit_kernel": "part_exit", "untile_kernel": "untile",
+                 "fe_blur_kernel": "fe_blur"}
 
 # Least-time bounds (NVIDIA's H100 SXM data sheet, full 700 W power limit):
 # device memory rate and the f32 rate outside the tensor cores.
@@ -1295,24 +1298,13 @@ def _part_io_bytes(parts, viewport, t: int) -> tuple:
     return entry, exit_
 
 
-def _part_io_phase(torch, dev, results: dict) -> None:
-    """The part entry and exit kernels against their plain versions: every
-    filter part of the icons_3840 benchmark frame (rasterbench's
-    configuration), then random parts at T=16/32/64/128; each call one
-    launch.  Times of the frame's parts by CUDA events, against their
-    bytes bound; the served icon frame captures one entry and one exit a
-    part."""
+def _icon_frame(dev):
+    """The icons_3840 benchmark frame (rasterbench's configuration, seed 0)
+    compiled on dev: (CompiledScene, viewport, tile)."""
     from rasterbench.docs import pass_doc as icons
     from svgrasterize_tpu_torch.core.transform import Transform
     from svgrasterize_tpu_torch.frontend.svg import scene_from_str
-    from svgrasterize_tpu_torch.ops import fused_exec, part_io
-    from svgrasterize_tpu_torch.render_plan import (
-        KERNEL_OPS,
-        CompiledScene,
-        _apply_group_post,
-        lower_scene,
-        new_pool,
-    )
+    from svgrasterize_tpu_torch.render_plan import CompiledScene, lower_scene
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "rasterbench",
                            "configs", "icons_3840.json"), encoding="utf-8") as f:
@@ -1323,7 +1315,20 @@ def _part_io_phase(torch, dev, results: dict) -> None:
     t = config["tile"]
     lowered = lower_scene(scene, Transform().matrix(0, 1, 0, 1, 0, 0), vp, False, t,
                           device=dev)
-    cs = CompiledScene(lowered, vp, False, device=dev)
+    return CompiledScene(lowered, vp, False, device=dev), vp, t
+
+
+def _part_io_phase(torch, dev, results: dict) -> None:
+    """The part entry and exit kernels against their plain versions: every
+    filter part of the icons_3840 benchmark frame (rasterbench's
+    configuration), then random parts at T=16/32/64/128; each call one
+    launch.  Times of the frame's parts by CUDA events, against their
+    bytes bound; the served icon frame captures one entry and one exit a
+    part."""
+    from svgrasterize_tpu_torch.ops import fused_exec, part_io
+    from svgrasterize_tpu_torch.render_plan import KERNEL_OPS, _apply_group_post, new_pool
+
+    cs, vp, t = _icon_frame(dev)
     prog = cs.program
     pool = new_pool(prog)
     parts, seeds_err, exit_err = [], 0.0, 0.0
@@ -1439,6 +1444,123 @@ def _part_io_phase(torch, dev, results: dict) -> None:
             f" ms ({r['bound_by']})"
         ))
     del cs, prog, pool, parts
+
+
+def _fe_blur_bound(calls) -> dict:
+    """Bound of one chain blur, the mean of calls (image, taps, flag): the
+    layer read once and the grown layer written once, against 8 operations
+    a tap and pixel (a multiply and an add on four channels) of the pass
+    down the rows and of the pass along them."""
+    nbytes = ops = 0
+    for image, taps, _flag in calls:
+        (h, w, _c), (kh, kw) = image.shape, taps.shape
+        ho, wo = h + kh - 1, w + kw - 1
+        nbytes += (h * w + ho * wo) * 16
+        ops += 8 * (ho * w * kh + ho * wo * kw)
+    return _bound(nbytes / len(calls), ops / len(calls))
+
+
+def _fe_blur_phase(torch, dev, results: dict) -> None:
+    """The chain blur kernel against its plain version: the icons_3840
+    frame's 8 chain blurs (recorded from an eager frame), then random
+    layers and taps, both routes, flag on and off, alphas at the
+    un-premultiply's floor; each call its launches.  The frame's blurs
+    timed against their bound, the plain version and cuDNN's depthwise
+    convolution (TF32 off, timed only); the served frame captures one
+    launch a chain blur."""
+    from svgrasterize_tpu_torch.core.color import pre_to_straight_alpha
+    from svgrasterize_tpu_torch.ops import blur, fused_exec
+
+    cs, _vp, t = _icon_frame(dev)
+    with _Recorder(fused_exec, "fe_blur", record=True) as rec:
+        cs.render_tiles()
+    calls = rec.calls
+    if len(calls) != 8 or not all(flag for *_x, flag in calls):
+        raise RuntimeError(f"the icons_3840 frame blurred {len(calls)} chain layers"
+                           f" ({[flag for *_x, flag in calls]}), not 8 to un-premultiply")
+
+    def check(image, taps, flag):
+        before = fused_exec.fe_blur.launches
+        got = fused_exec.fe_blur(image, taps, flag)
+        kh, kw = taps.shape
+        if fused_exec.fe_blur.launches != before + fused_exec.fe_blur_launches(kh, kw):
+            raise RuntimeError(f"fe_blur of {kh} x {kw} taps made other than"
+                               f" {fused_exec.fe_blur_launches(kh, kw)} launches")
+        ref = blur.fe_blur(image, taps.u, taps.v, flag)
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"fe_blur gives {tuple(got.shape)}, plain {tuple(ref.shape)}")
+        return float((got - ref).abs().max())
+
+    frame_err = max(check(*c) for c in calls)
+    rng = np.random.default_rng(22)
+    floor = np.float32(0.0001)
+    worst, routes = 0.0, set()
+    for kh, kw in ((3, 3), (5, 5), (11, 11), (19, 19), (7, 21), (23, 25), (25, 23), (41, 61),
+                   (101, 3), (3, 101)):
+        for h, w in ((1, 1), (1, 300), (300, 1), (int(rng.integers(2, 40)),
+                                                   int(rng.integers(2, 40))),
+                     (int(rng.integers(90, 260)), int(rng.integers(90, 260)))):
+            alpha = rng.uniform(0, 1, (h, w, 1)).astype(np.float32)
+            pick = rng.random((h, w, 1))
+            alpha[pick < 0.2] = 0
+            alpha[pick > 0.8] = rng.choice([np.nextafter(floor, 0), floor,
+                                            np.nextafter(floor, 1)], int((pick > 0.8).sum()))
+            image = np.concatenate([rng.uniform(0, 1, (h, w, 3)) * alpha, alpha], -1)
+            image = torch.from_numpy(image.astype(np.float32)).to(dev)
+            taps = blur.BlurTaps((kh, kw), *(torch.from_numpy(rng.dirichlet(np.ones(k))
+                                                                .astype(np.float32)).to(dev)
+                                             for k in (kh, kw)), None)
+            flag = bool(rng.integers(0, 2))
+            if not flag:
+                image = pre_to_straight_alpha(image)
+            worst = max(worst, check(image, taps, flag))
+            routes.add(fused_exec.fe_blur_launches(kh, kw))
+    torch.cuda.synchronize()
+    err = max(frame_err, worst)
+    if not err <= BLUR_TOL or routes != {1, 2}:
+        raise RuntimeError(f"fe_blur kernel disagrees with plain: {err} > {BLUR_TOL}"
+                           f" (routes {routes})")
+
+    def kernels():
+        for image, taps, flag in calls:
+            fused_exec.fe_blur(image, taps, flag)
+
+    def plain():
+        for image, taps, flag in calls:
+            blur.fe_blur(image, taps.u, taps.v, flag)
+
+    straight = [(pre_to_straight_alpha(image), torch.outer(taps.u, taps.v))
+                for image, taps, _flag in calls]
+
+    def library():
+        for image, kernel in straight:
+            blur.convolve_full(image, kernel)
+
+    n = len(calls)
+    timed = dict(ms=_time_ms(torch, kernels, 50) / n, dev_ms=_device_ms(torch, kernels, 50) / n,
+                 plain_ms=_time_ms(torch, plain, 10) / n,
+                 library_ms=_time_ms(torch, library, 10) / n, **_fe_blur_bound(calls))
+    results["fe_blur"] = dict(max_abs_err=err, **timed)
+
+    # the served icon frame: one launch a chain blur, captured
+    fused_exec.reset_launch_counts()
+    cs.render_tiles_many(2)
+    torch.cuda.synchronize()
+    if cs.frame_launches["fe_blur"] != n:
+        raise RuntimeError(f"the icon frame captured {cs.frame_launches['fe_blur']} fe_blur"
+                           f" launches for {n} chain blurs")
+    shapes = [(tuple(image.shape[:2]), taps.shape[0]) for image, taps, _f in calls]
+    _say("fe_blur", (
+        f"icons_3840 T={t}: {n} chain blurs (layer, taps) {shapes}: max abs diff"
+        f" {frame_err:.3g}; random layers 1x1-260x260, taps 3-101, routes {sorted(routes)}:"
+        f" {worst:.3g}; the served frame captures {cs.frame_launches['fe_blur']}"
+    ))
+    _say("fe_blur", (
+        f"the frame's {n} blurs: {timed['ms']:.4f} ms a call ({timed['dev_ms']:.4f} ms with the"
+        f" host ahead), plain {timed['plain_ms']:.4f} ms, cuDNN depthwise (TF32 off)"
+        f" {timed['library_ms']:.4f} ms, bound {timed['bound_ms']:.6f} ms ({timed['bound_by']})"
+    ))
+    del cs, calls, straight
 
 
 def _serve_8k_phase(torch, doc: str, fonts, dev, path_launches: dict) -> None:
@@ -2385,8 +2507,10 @@ def main() -> int:
         results["pool_rows"] = _pool_rows_check(torch, prog, canvas0)
         _say("pool_rows", _pool_rows_line(results["pool_rows"]))
 
-        # 9b. the filter parts' entry and exit kernels against plain
+        # 9b. the filter parts' entry and exit kernels against plain, 9c.
+        # the chain blur kernel
         _part_io_phase(torch, dev, results)
+        _fe_blur_phase(torch, dev, results)
 
         # 10. CLI, isolation-pass document (a main path)
         fused_exec.reset_launch_counts()
@@ -2404,7 +2528,7 @@ def main() -> int:
         diff = np.abs(img.astype(np.int16) - pass_plain_png.astype(np.int16))
         if int(diff.max()) > PNG_TOL:
             raise RuntimeError(f"pass CLI PNG differs from the plain render by {diff.max()}/255")
-        missed = [k for k in ("scene_tiles", "blur_chunk", "pool_rows")
+        missed = [k for k in ("scene_tiles", "blur_chunk", "pool_rows", "fe_blur")
                   if path_launches["passes"][k] == 0]
         if missed:
             raise RuntimeError(f"pass CLI did not launch {missed}: {path_launches['passes']}")
@@ -3002,7 +3126,7 @@ def main() -> int:
     launches = {
         k: sum(counts[k] for counts in path_launches.values())
         for k in ("prepass_winding", "scene_tiles", "blur_chunk", "pool_rows", "winding",
-                  "part_entry", "part_exit", "untile")
+                  "part_entry", "part_exit", "untile", "fe_blur")
     }
     sources = {
         "prepass_winding": ("prepass.cu", "svgrasterize_tpu/ops/fused_exec.py:443"),
@@ -3013,6 +3137,7 @@ def main() -> int:
         "part_entry": ("part_io.cu", None),
         "part_exit": ("part_io.cu", None),
         "untile": ("untile.cu", None),
+        "fe_blur": ("fe_blur.cu", None),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

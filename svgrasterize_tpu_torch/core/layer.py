@@ -130,18 +130,28 @@ class Layer:
         kernel: a (kh, kw) array, or its blur.BlurTaps on the layer's
         device (Filter.prepare uploads them once).  Rank-1 kernels
         (axis-aligned blurs) run as two band matmuls — kh + kw taps per
-        pixel instead of kh * kw.  linear_rgb selects the operating space
+        pixel instead of kh * kw — or, for a 4-channel layer on the card, as
+        csrc/fe_blur.cu, which un-premultiplies as it loads where the
+        colorspace stays.  linear_rgb selects the operating space
         (color-interpolation-filters)."""
         from ..ops import blur
 
-        layer = self.convert(pre_alpha=False, linear_rgb=linear_rgb)
         if not isinstance(kernel, blur.BlurTaps):
-            kernel = blur.upload_kernel(np.asarray(kernel), layer.image.device)
+            kernel = blur.upload_kernel(np.asarray(kernel), self.image.device)
         kh, kw = kernel.shape
-        if kernel.full is None:
-            image = blur.convolve_separable(layer.image, kernel.u, kernel.v)
+        if kernel.full is None and self.channels == 4 and self.image.is_cuda:
+            from ..ops import fused_exec
+
+            unpremultiply = self.pre_alpha and self.linear_rgb == linear_rgb
+            layer = self if unpremultiply else self.convert(pre_alpha=False,
+                                                            linear_rgb=linear_rgb)
+            image = fused_exec.fe_blur(layer.image.contiguous(), kernel, unpremultiply)
         else:
-            image = blur.convolve_full(layer.image, kernel.full)
+            layer = self.convert(pre_alpha=False, linear_rgb=linear_rgb)
+            if kernel.full is None:
+                image = blur.convolve_separable(layer.image, kernel.u, kernel.v)
+            else:
+                image = blur.convolve_full(layer.image, kernel.full)
         # the reference truncates x - k/2 toward zero, which shifts the blur
         # by one pixel whenever x > k/2; reproduced bit-for-bit (callers feed
         # bbox-tight layers so the same x reaches this formula)

@@ -1,9 +1,9 @@
 // C interface of the hand-written CUDA kernels, loaded with ctypes by
 // svgrasterize_tpu_torch/ops/cuda_lib.py.
 //
-// Every function enqueues one kernel launch on `stream`, does not
-// synchronise and allocates nothing; it returns the cudaGetLastError()
-// code right after the launch (0 on success).  All pointers are device
+// Every function enqueues one kernel launch on `stream` (svgr_fe_blur two
+// for long taps), does not synchronise and allocates nothing; it returns the
+// cudaGetLastError() code right after the launch (0 on success).  All pointers are device
 // pointers to contiguous arrays.
 #pragma once
 
@@ -191,6 +191,18 @@ int svgr_part_exit(float* pool, int pool_rows, const float* result, int h,
 // tile is 16, 32, 64 or 128.
 int svgr_untile(const float* tiles, int grid_w, int tile, float* out, int h,
                 int w, cudaStream_t stream);
+
+// A filter chain's separable blur: the full convolution of a layer with
+// row taps u (down the rows) and column taps v (along each row).
+//   image: (h, w, 4) f32, 16-byte aligned; with unpremultiply set each
+//          pixel is first un-premultiplied as core/color.py does it;
+//   u: (kh,) f32; v: (kw,) f32;
+//   out: (h + kh - 1, w + kw - 1, 4) f32;
+//   scratch: (h + kh - 1, w, 4) f32 where the taps are too long for one
+//            launch's shared memory (then two launches), else unused.
+int svgr_fe_blur(const float* image, int h, int w, const float* u, int kh,
+                 const float* v, int kw, int unpremultiply, float* scratch,
+                 float* out, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

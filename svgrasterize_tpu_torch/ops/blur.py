@@ -3,10 +3,11 @@ convolutions in torch.
 
 The kernel is constructed in *user space* (so blurs rotate correctly with the
 presentation transform — ref svgrasterize.py:1903-1944).  For axis-aligned
-transforms the kernel is exactly separable and runs as two band matmuls;
-otherwise as one depthwise 2D convolution.  All convolutions are 'full', so
-the layer grows by the kernel extent, matching scipy.signal.convolve
-semantics.  A copy of the JAX package's ops/blur.py.
+transforms the kernel is exactly separable and runs as two band matmuls (on
+the card a 4-channel layer takes csrc/fe_blur.cu, whose plain version is
+fe_blur below); otherwise as one depthwise 2D convolution.  All
+convolutions are 'full', so the layer grows by the kernel extent, matching
+scipy.signal.convolve semantics.  A copy of the JAX package's ops/blur.py.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import color
 from ..utils.constants import DEVICE_FLOAT
 
 # truncate the gaussian at this many sigmas (ref :1924)
@@ -122,6 +124,17 @@ def convolve_separable(image: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     rows = torch.matmul(bu, image.reshape(h, w * ch))  # (h_out, w*ch)
     rows = rows.reshape(-1, w, ch).transpose(1, 2)      # (h_out, ch, w)
     return torch.matmul(rows, bv.T).transpose(1, 2)     # (h_out, w_out, ch)
+
+
+def fe_blur(image: torch.Tensor, u: torch.Tensor, v: torch.Tensor, unpremultiply: bool):
+    """A filter chain's separable blur of an (h, w, 4) layer image, first
+    un-premultiplied (color.pre_to_straight_alpha) when unpremultiply is
+    set: the plain version of csrc/fe_blur.cu (ops/fused_exec.fe_blur),
+    which the kernel is held against.  Layer.convolve's CPU path, the
+    conversion then convolve_separable, runs the same operations."""
+    if unpremultiply:
+        image = color.pre_to_straight_alpha(image)
+    return convolve_separable(image, u, v)
 
 
 def convolve_full(image: torch.Tensor, kernel: torch.Tensor):

@@ -58,6 +58,7 @@ _SIGNATURES = {
         _int, _int, _vp, _vp, _int, _int, _vp,
     ),
     "svgr_untile": (_vp, _int, _int, _vp, _int, _int, _vp),
+    "svgr_fe_blur": (_vp, _int, _int, _vp, _int, _vp, _int, _int, _vp, _vp, _vp),
 }
 
 

@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels (csrc/prepass.cu, csrc/scene.cu,
 csrc/blur_chunk.cu, csrc/pool_rows.cu, csrc/winding.cu, csrc/part_io.cu,
-csrc/untile.cu).
+csrc/untile.cu, csrc/fe_blur.cu).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches its kernel on PyTorch's current stream through the ctypes
@@ -8,8 +8,10 @@ library (ops/cuda_lib.py) and raises if the launch returns a CUDA error.
 Tensors on the CPU go to the kernel's plain PyTorch version
 (ops/batch_exec.py, ops/filter_batch.apply_level, ops/coverage.winding,
 ops/part_io.py) instead; that is the only case that does.  A tensor on any
-other device raises.  `untile` takes CUDA tensors alone: its plain version
-is render_plan.tiles_to_layer's reshape and permute, which calls it.
+other device raises.  `untile` and `fe_blur` take CUDA tensors alone: their
+plain versions are render_plan.tiles_to_layer's reshape and permute and
+ops/blur.fe_blur, and their callers (tiles_to_layer, Layer.convolve) choose
+by the device.
 
 Each wrapper counts its kernel launches in its `launches` attribute, so a
 run can show that its main path went through the kernels
@@ -606,8 +608,67 @@ def untile(tiles, grid, tile: int, viewport):
 untile.launches = 0
 
 
+# csrc/fe_blur.cu's block: the output pixels (rows, columns) it owns, and the
+# shared memory its one-launch route may take (the default limit, so no
+# opt-in); taps whose window and intermediate need more take two launches
+FE_BLUR_TILE = (8, 32)
+FE_BLUR_SHARED = 48 * 1024
+
+
+def fe_blur_launches(kh: int, kw: int) -> int:
+    """Launches csrc/fe_blur.cu makes for kh x kw taps: 1 where a block's
+    input window, intermediate (float4 pixels) and taps fit FE_BLUR_SHARED,
+    else 2 (u down the rows into a scratch layer, then v along them)."""
+    rows, cols = FE_BLUR_TILE
+    shared = 16 * (cols + kw - 1) * (2 * rows + kh - 1) + 4 * (kh + kw)
+    return 1 if shared <= FE_BLUR_SHARED else 2
+
+
+def fe_blur(image, taps, unpremultiply: bool):
+    """A filter chain's separable blur on the card: the full convolution
+    (h + kh - 1, w + kw - 1, 4) f32 of a layer image (h, w, 4) f32 with taps
+    (a blur.BlurTaps that separates, its u and v on the image's device), each
+    pixel un-premultiplied first when unpremultiply is set.  One launch, or
+    two through a scratch layer for long taps (fe_blur_launches).  A tensor
+    on the CPU raises: blur.fe_blur is the plain version, and Layer.convolve
+    keeps its band matmuls there."""
+    device = image.device
+    if not _kernel_device(device, "fe_blur"):
+        raise ValueError("fe_blur: the image must be on a CUDA device")
+    if taps.full is not None or taps.u is None or taps.v is None:
+        raise ValueError("fe_blur: the taps do not separate")
+    kh, kw = (int(k) for k in taps.shape)
+    f32 = torch.float32
+    _check(image, "image", f32, (None, None, 4), device)
+    _check(taps.u, "u", f32, (kh,), device)
+    _check(taps.v, "v", f32, (kw,), device)
+    if image.data_ptr() % 16:
+        raise ValueError("fe_blur: image must be 16-byte aligned")
+    h, w, _ = image.shape
+    if max(h + kh, w + kw) > _INT32_MAX:
+        raise ValueError(f"fe_blur: a {h} x {w} layer with {kh} x {kw} taps exceeds 32 bits")
+    if not (h and w):
+        return torch.zeros((h + kh - 1, w + kw - 1, 4), dtype=f32, device=device)
+    out = torch.empty((h + kh - 1, w + kw - 1, 4), dtype=f32, device=device)
+    launches = fe_blur_launches(kh, kw)
+    scratch = None if launches == 1 else torch.empty((h + kh - 1, w, 4), dtype=f32,
+                                                      device=device)
+    from . import cuda_lib
+
+    lib = cuda_lib.load()
+    rc = lib.svgr_fe_blur(image.data_ptr(), h, w, taps.u.data_ptr(), kh, taps.v.data_ptr(),
+                          kw, int(bool(unpremultiply)), _ptr(scratch), out.data_ptr(),
+                          _stream(device))
+    _raise_on(rc, "fe_blur")
+    fe_blur.launches += launches
+    return out
+
+
+fe_blur.launches = 0
+
+
 KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding, part_entry,
-           part_exit, untile)
+           part_exit, untile, fe_blur)
 
 
 def reset_launch_counts() -> None:
