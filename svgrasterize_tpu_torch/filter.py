@@ -320,7 +320,10 @@ def _prepare_primitive(kind: int, attrs: tuple, transform: Transform, linear: bo
         kernel, divisor, _bias, _preserve_alpha = attrs
         return _same_kernel(np.asarray(kernel, np.float64) / divisor, device)
     if kind in (FE_DIFFUSE_LIGHTING, FE_SPECULAR_LIGHTING):
-        return (_same_kernel(_SOBEL / 4.0, device), _same_kernel(_SOBEL.T / 4.0, device),
+        # the spec's normal is a cross-correlation with its Sobel kernels,
+        # that is a true convolution with the kernels negated (turned half
+        # round, an antisymmetric kernel changes sign)
+        return (_same_kernel(-_SOBEL / 4.0, device), _same_kernel(-_SOBEL.T / 4.0, device),
                 _upload(attrs[3], device))
     if kind == FE_IMAGE:
         scene, region = attrs

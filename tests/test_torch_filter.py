@@ -4,7 +4,11 @@ Every filter primitive is parsed from the same SVG by both packages'
 frontends and applied to one seeded layer (numpy random premultiplied RGBA)
 through Filter.__call__ (each primitive's _apply): results must agree within
 1e-5 (feImage, which renders through the interpreter, here and in
-tests/test_torch_interp.py).  The batched blur chunk's plain
+tests/test_torch_interp.py).  The lighting primitives are held against the
+JAX package's with its Sobel kernels negated: it convolves with them where
+the SVG 1.1 normal is a cross-correlation, so its normals' in-plane sign is
+the spec's reversed, and the port's follows the spec
+(test_lighting_normals_follow_the_spec).  The batched blur chunk's plain
 version (ops/filter_batch.apply_chunk) is held against the JAX package's
 XLA chain and its Pallas chunk kernel in interpret mode within 2e-6, the
 bound tests/test_filter_batch.py holds between those two.
@@ -154,10 +158,45 @@ def _assert_layers_close(ref, got):
 
 
 @pytest.mark.parametrize("name", sorted(FILTERS))
-def test_filter_primitive_matches_jax(name):
+def test_filter_primitive_matches_jax(name, monkeypatch):
+    if "diffuse" in name or "specular" in name:
+        import svgrasterize_tpu.filter as j_filter
+
+        monkeypatch.setattr(j_filter, "_SOBEL", -j_filter._SOBEL)
     ref, got = _run_both(name)
     _assert_layers_close(ref, got)
     assert float(np.abs(np.asarray(ref.image)).max()) > 0.0
+
+
+@pytest.mark.parametrize("kind", ["diffuse", "specular"])
+def test_lighting_normals_follow_the_spec(kind):
+    """On an alpha ramp rising to the right the SVG 1.1 normal,
+    N = (-surfaceScale dA/dx, -surfaceScale dA/dy, 1), leans left: a light
+    far to the left lights the ramp more than one as far to the right, and
+    an interior pixel's diffuse light is the spec's N.L to 1e-6."""
+    prim = ("<feDiffuseLighting surfaceScale='2' diffuseConstant='1'>" if kind == "diffuse"
+            else "<feSpecularLighting surfaceScale='2' specularConstant='1'"
+                 " specularExponent='1'>")
+    end = prim.split(" ")[0].replace("<", "</") + ">"
+    values = []
+    for x in (-1000, 1000):
+        doc = ("<svg xmlns='http://www.w3.org/2000/svg' width='32' height='32'><defs>"
+               f"<filter id='f'>{prim}<fePointLight x='{x}' y='8' z='1000'/>{end}</filter>"
+               "</defs><rect width='10' height='10' filter='url(#f)'/></svg>")
+        flt = t_scene_from_str(doc)[1]["f"]
+        ramp = torch.linspace(0.0, 1.0, 16).expand(16, 16)
+        image = torch.stack([ramp * 0.5, ramp * 0.5, ramp * 0.5, ramp], -1).contiguous()
+        out = flt(TTransform().matrix(0, 1, 0, 1, 0, 0),
+                  TLayer(image, (0, 0), pre_alpha=True, linear_rgb=True))
+        values.append(float(out.image[8, 8, 0]))
+    assert values[0] > values[1] > 0.0
+    if kind == "diffuse":
+        # dA/dx = 1 / 15 a column, so the Sobel sum is 2 / 15 and
+        # N = (-4 / 15, 0, 1); L from the pixel centre (8.5, 8.5) at height 2 A
+        n = np.array([-4.0 / 15.0, 0.0, 1.0])
+        light = np.array([-1000.0 - 8.5, 8.0 - 8.5, 1000.0 - 2.0 * 8.0 / 15.0])
+        expect = n @ light / np.linalg.norm(n) / np.linalg.norm(light)
+        assert abs(values[0] - expect) <= 1e-6
 
 
 @pytest.mark.parametrize("name", ["blur", "blur_aniso", "drop_shadow"])
