@@ -84,6 +84,7 @@ WINDING_TOL = 1e-4  # the prepass's closed form over a whole image, other order
 PNG_TOL = 1  # 8-bit steps: ~1e-6 differences at a .5 boundary flip one step
 CPU_TOL = 1e-5  # a card frame against the same program rendered on the CPU
 PART_TOL = 1e-5  # the part kernels: the same f32 steps; powf within an ulp or two
+TURBULENCE_TOL = 2e-6  # the same f32 steps in the same order, values in [0, 1]
 
 CLI_SIZE = 1488
 CLI_DRAWS = 1536
@@ -117,7 +118,7 @@ TRACE_KERNELS = {"prepass_kernel": "prepass_winding", "scene_kernel": "scene_til
                  "blur_level_kernel": "blur_chunk", "pool_rows_kernel": "pool_rows",
                  "winding_kernel": "winding", "part_entry_kernel": "part_entry",
                  "part_exit_kernel": "part_exit", "untile_kernel": "untile",
-                 "fe_blur_kernel": "fe_blur"}
+                 "fe_blur_kernel": "fe_blur", "fe_turbulence_kernel": "fe_turbulence"}
 
 # Least-time bounds (NVIDIA's H100 SXM data sheet, full 700 W power limit):
 # device memory rate and the f32 rate outside the tensor cores.
@@ -908,8 +909,9 @@ def _ptxas_report(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"([a-z_]+_kernel)ILi(\d+)E", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            k = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (m.group(1) if not k else f"{k.group(1)}<{k.group(2)}>" if k.group(2)
+                    else k.group(1))
             spilled = 0
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -1298,18 +1300,21 @@ def _part_io_bytes(parts, viewport, t: int) -> tuple:
     return entry, exit_
 
 
-def _icon_frame(dev):
-    """The icons_3840 benchmark frame (rasterbench's configuration, seed 0)
-    compiled on dev: (CompiledScene, viewport, tile)."""
-    from rasterbench.docs import pass_doc as icons
+def _icon_frame(dev, config_name: str = "icons_3840"):
+    """A benchmark frame of rasterbench's configuration config_name (the
+    icon sheets: icons_3840, effects_3840), seed 0, compiled on dev:
+    (CompiledScene, viewport, tile)."""
+    import importlib
+
     from svgrasterize_tpu_torch.core.transform import Transform
     from svgrasterize_tpu_torch.frontend.svg import scene_from_str
     from svgrasterize_tpu_torch.render_plan import CompiledScene, lower_scene
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "rasterbench",
-                           "configs", "icons_3840.json"), encoding="utf-8") as f:
+                           "configs", f"{config_name}.json"), encoding="utf-8") as f:
         config = json.load(f)
-    svg, _records = icons.generate(0, **config["args"])
+    generator = importlib.import_module(f"rasterbench.docs.{config['generator']}")
+    svg, _records = generator.generate(0, **config["args"])
     scene, _ids, (w, h) = scene_from_str(svg, None, config["width"], None)
     vp = (0, 0, int(h), int(w))
     t = config["tile"]
@@ -1561,6 +1566,143 @@ def _fe_blur_phase(torch, dev, results: dict) -> None:
         f" {timed['library_ms']:.4f} ms, bound {timed['bound_ms']:.6f} ms ({timed['bound_by']})"
     ))
     del cs, calls, straight
+
+
+def _turbulence_ops(h: int, w: int, octaves: int, fractal: bool) -> int:
+    """FP32 operations of csrc/fe_turbulence.cu over an h x w region: per
+    pixel its centre and user point (14: two adds a centre, two products
+    and two adds a coordinate, the two frequencies) and the four channels'
+    remap and clamp (fractalNoise's add and halving, two compares a channel);
+    per octave the lattice cell (two adds, floors, subtractions and the
+    second offsets: 8), the two s-curves (8), per channel the four corners'
+    dot products (12), three lerps (9), the absolute value for turbulence,
+    the scaled sum (2), and the doubling (2)."""
+    per_octave = 8 + 8 + 4 * (12 + 9 + (0 if fractal else 1) + 2) + 2
+    per_pixel = 14 + 4 * ((2 if fractal else 0) + 2) + octaves * per_octave
+    return h * w * per_pixel
+
+
+def _fe_turbulence_bound(calls) -> dict:
+    """Bound of one feTurbulence, the mean of calls (fe_turbulence's
+    arguments): the tables read once and the (h, w, 4) f32 image written
+    once, against _turbulence_ops."""
+    nbytes = ops = 0
+    for selector, gradient, _offset, (h, w), _inv, _fx, _fy, octaves, fractal in calls:
+        nbytes += selector.numel() * 4 + gradient.numel() * 4 + h * w * 16
+        ops += _turbulence_ops(h, w, octaves, fractal)
+    return _bound(nbytes / len(calls), ops / len(calls))
+
+
+def _kernel_us(torch, fn, name: str, reps: int) -> float:
+    """Mean device us of the kernels whose trace name holds name, a call of
+    fn, from a torch.profiler trace of reps calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        events = _trace_events(tmp)
+    kernels = _device_events(events).get("kernel", {})
+    return sum(us for n, (_c, us) in kernels.items() if name in n) / reps
+
+
+def _fe_turbulence_phase(torch, dev, results: dict, path_launches: dict) -> None:
+    """The feTurbulence kernel against its plain version: the effects_3840
+    frame's 2 grain cards (recorded from an eager frame), then random
+    regions, transforms (scale, rotation, skew), frequencies, octaves 1-8,
+    fractalNoise and turbulence; each call one launch.  The grain cards
+    timed against their bound and the plain version on the card (no
+    PyTorch call computes the noise); the served frame captures one launch
+    a grain card (a main path)."""
+    import math
+
+    from svgrasterize_tpu_torch import filter as tfilter
+    from svgrasterize_tpu_torch.core.transform import Transform
+    from svgrasterize_tpu_torch.ops import fused_exec
+    from svgrasterize_tpu_torch.ops.turbulence import turbulence_region
+
+    cs, _vp, t = _icon_frame(dev, "effects_3840")
+    with _Recorder(fused_exec, "fe_turbulence", record=True) as rec:
+        cs.render_tiles()
+    calls = rec.calls
+    if len(calls) != 2:
+        raise RuntimeError(f"the effects_3840 frame ran {len(calls)} feTurbulence, not 2")
+
+    def check(*args):
+        size = args[3]
+        before = fused_exec.fe_turbulence.launches
+        got = fused_exec.fe_turbulence(*args)
+        if fused_exec.fe_turbulence.launches != before + 1:
+            raise RuntimeError(f"fe_turbulence of {size} made other than one launch")
+        ref = turbulence_region(*args)
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"fe_turbulence gives {tuple(got.shape)}, plain {tuple(ref.shape)}")
+        return float((got - ref).abs().max())
+
+    frame_err = max(check(*c) for c in calls)
+    rng = np.random.default_rng(24)
+    view = Transform().matrix(0, 1, 0, 1, 0, 0)
+    worst = 0.0
+    for octaves in (1, 2, 3, 4, 8):
+        for fractal in (True, False):
+            for h, w in ((1, 1), (1, 300), (int(rng.integers(2, 64)), int(rng.integers(2, 64))),
+                         (int(rng.integers(100, 600)), int(rng.integers(100, 900)))):
+                tr = view.translate(*rng.uniform(-300, 300, 2)).rotate(
+                    rng.uniform(-math.pi, math.pi)).skew(*rng.uniform(-0.5, 0.5, 2)).scale(
+                    *rng.uniform(0.3, 3.0, 2))
+                fx, fy = (float(f) for f in rng.uniform(0.005, 0.7, 2))
+                attrs = (fx, fy, octaves, int(rng.integers(-2**31, 2**32)), fractal, None)
+                selector, gradient = tfilter._prepare_primitive(tfilter.FE_TURBULENCE, attrs,
+                                                                tr, True, dev)
+                offset = tuple(int(o) for o in rng.integers(-500, 3000, 2))
+                worst = max(worst, check(selector, gradient, offset, (h, w),
+                                         tr.invert.m[:2], fx, fy, octaves, fractal))
+    torch.cuda.synchronize()
+    err = max(frame_err, worst)
+    if not err <= TURBULENCE_TOL:
+        raise RuntimeError(f"fe_turbulence kernel disagrees with plain: {err} > {TURBULENCE_TOL}")
+
+    def kernels():
+        for args in calls:
+            fused_exec.fe_turbulence(*args)
+
+    def plain():
+        for args in calls:
+            turbulence_region(*args)
+
+    n = len(calls)
+    timed = dict(ms=_time_ms(torch, kernels, 50) / n, dev_ms=_device_ms(torch, kernels, 50) / n,
+                 kernel_us=_kernel_us(torch, kernels, "fe_turbulence_kernel", 20) / n,
+                 plain_ms=_time_ms(torch, plain, 10) / n, library_ms=None,
+                 **_fe_turbulence_bound(calls))
+    results["fe_turbulence"] = dict(max_abs_err=err, **timed)
+
+    # the served effects frame: one launch a grain card, captured
+    fused_exec.reset_launch_counts()
+    cs.render_tiles_many(2)
+    torch.cuda.synchronize()
+    path_launches["effects_serve"] = _launches()
+    if cs.frame_launches["fe_turbulence"] != n:
+        raise RuntimeError(f"the effects frame captured {cs.frame_launches['fe_turbulence']}"
+                           f" fe_turbulence launches for {n} grain cards")
+    shapes = [(tuple(c[2]), tuple(c[3]), c[7], c[8]) for c in calls]
+    _say("fe_turbulence", (
+        f"effects_3840 T={t}: {n} grain cards (offset, size, octaves, fractal) {shapes}: max abs"
+        f" diff {frame_err:.3g}; random regions 1x1-600x900, octaves 1-8, both types,"
+        f" rotated, skewed, scaled: {worst:.3g}; the served frame captures"
+        f" {cs.frame_launches['fe_turbulence']}"
+    ))
+    _say("fe_turbulence", (
+        f"a grain card: {timed['ms']:.4f} ms a call ({timed['dev_ms']:.4f} ms with the host"
+        f" ahead; the kernel alone {timed['kernel_us']:.2f} us by the profiler), plain (PyTorch"
+        f" on the card) {timed['plain_ms']:.4f} ms, bound {timed['bound_ms']:.6f} ms"
+        f" ({timed['bound_by']}; bytes {_bound(calls[0][3][0] * calls[0][3][1] * 16, 0)['bound_ms']:.6f}"
+        f" ms, operations {_bound(0, _turbulence_ops(*calls[0][3], calls[0][7], calls[0][8]))['bound_ms']:.6f} ms)"
+    ))
+    del cs, calls
 
 
 def _serve_8k_phase(torch, doc: str, fonts, dev, path_launches: dict) -> None:
@@ -2508,9 +2650,10 @@ def main() -> int:
         _say("pool_rows", _pool_rows_line(results["pool_rows"]))
 
         # 9b. the filter parts' entry and exit kernels against plain, 9c.
-        # the chain blur kernel
+        # the chain blur kernel, 9d. the feTurbulence kernel
         _part_io_phase(torch, dev, results)
         _fe_blur_phase(torch, dev, results)
+        _fe_turbulence_phase(torch, dev, results, path_launches)
 
         # 10. CLI, isolation-pass document (a main path)
         fused_exec.reset_launch_counts()
@@ -3126,7 +3269,7 @@ def main() -> int:
     launches = {
         k: sum(counts[k] for counts in path_launches.values())
         for k in ("prepass_winding", "scene_tiles", "blur_chunk", "pool_rows", "winding",
-                  "part_entry", "part_exit", "untile", "fe_blur")
+                  "part_entry", "part_exit", "untile", "fe_blur", "fe_turbulence")
     }
     sources = {
         "prepass_winding": ("prepass.cu", "svgrasterize_tpu/ops/fused_exec.py:443"),
@@ -3138,6 +3281,7 @@ def main() -> int:
         "part_exit": ("part_io.cu", None),
         "untile": ("untile.cu", None),
         "fe_blur": ("fe_blur.cu", None),
+        "fe_turbulence": ("fe_turbulence.cu", None),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

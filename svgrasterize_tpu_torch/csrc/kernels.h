@@ -204,6 +204,23 @@ int svgr_fe_blur(const float* image, int h, int w, const float* u, int kh,
                  const float* v, int kw, int unpremultiply, float* scratch,
                  float* out, cudaStream_t stream);
 
+// A filter chain's feTurbulence: the SVG 1.1 spec's noise over an output
+// region of h x w device pixels whose first pixel is (off0, off1).
+//   selector: (514,) int32, entries in [0, 256); gradient: (4, 514, 2) f32,
+//             the spec's lattice tables (ops/turbulence.py lattice_tables),
+//             16-byte aligned; rows 256 on of each are the spec's copies of
+//             the first and are not read;
+//   inv00 ... inv12: the first two rows of the device-to-user transform,
+//             applied to the pixel centre (r + off0 + 0.5, c + off1 + 0.5);
+//   base_fx, base_fy: baseFrequency; octaves >= 1; fractal: 1 for
+//             fractalNoise, 0 for turbulence;
+//   out: (h, w, 4) f32, straight alpha clamped to [0, 1], 16-byte aligned.
+int svgr_fe_turbulence(const int* selector, const float* gradient, int off0,
+                       int off1, int h, int w, float inv00, float inv01,
+                       float inv02, float inv10, float inv11, float inv12,
+                       float base_fx, float base_fy, int octaves, int fractal,
+                       float* out, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

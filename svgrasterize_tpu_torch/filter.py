@@ -310,7 +310,8 @@ def _prepare_primitive(kind: int, attrs: tuple, transform: Transform, linear: bo
         from .ops.turbulence import lattice_tables
 
         selector, gradient = lattice_tables(attrs[3])
-        return torch.as_tensor(selector, device=device).long(), _upload(gradient, device)
+        selector = torch.as_tensor(selector, device=device)  # int32: csrc/fe_turbulence.cu's
+        return (selector if selector.is_cuda else selector.long()), _upload(gradient, device)
     if kind == FE_DROP_SHADOW:
         _dx, _dy, std, color = attrs
         kernel = blur_ops.gaussian_kernel(transform, (std, std))
@@ -435,25 +436,18 @@ def _apply(kind: int, attrs: tuple, inputs: list, transform: Transform,
         )
 
     if kind == FE_TURBULENCE:
-        from .ops.turbulence import turbulence_impl
-
         base_fx, base_fy, octaves, _seed, fractal, region = attrs
         (source,) = inputs
         offset, (h, w) = _output_region(region, source, transform)
+        if source.image.is_cuda:  # csrc/fe_turbulence.cu, the same arithmetic in one launch
+            from .ops.fused_exec import fe_turbulence as noise
+        else:
+            from .ops.turbulence import turbulence_region as noise
         selector, gradient = const
         # device pixel centers -> user space (the spec evaluates noise in
         # user coordinates; baseFrequency is per user unit)
-        inv = transform.invert.m
-        dev = source.image.device
-        pr = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + offset[0] + 0.5
-        pc = torch.arange(w, dtype=torch.float32, device=dev)[None, :] + offset[1] + 0.5
-        ux = float(inv[0, 0]) * pr + float(inv[0, 1]) * pc + float(inv[0, 2])
-        uy = float(inv[1, 0]) * pr + float(inv[1, 1]) * pc + float(inv[1, 2])
-        ux, uy = torch.broadcast_tensors(ux, uy)
-        image = turbulence_impl(
-            selector, gradient, ux, uy, float(base_fx), float(base_fy),
-            max(octaves, 1), bool(fractal),
-        )
+        image = noise(selector, gradient, offset, (h, w), transform.invert.m[:2],
+                      float(base_fx), float(base_fy), max(octaves, 1), bool(fractal))
         return Layer(image, offset, pre_alpha=False, linear_rgb=linear)
 
     if kind == FE_DROP_SHADOW:

@@ -34,6 +34,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
+_float = ctypes.c_float
 _SIGNATURES = {
     "svgr_prepass_winding": (
         ctypes.POINTER(_vp), ctypes.POINTER(_int), ctypes.POINTER(_int), _int,
@@ -59,6 +60,9 @@ _SIGNATURES = {
     ),
     "svgr_untile": (_vp, _int, _int, _vp, _int, _int, _vp),
     "svgr_fe_blur": (_vp, _int, _int, _vp, _int, _vp, _int, _int, _vp, _vp, _vp),
+    "svgr_fe_turbulence": (
+        _vp, _vp, _int, _int, _int, _int, *(_float,) * 8, _int, _int, _vp, _vp,
+    ),
 }
 
 

@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA kernels (csrc/prepass.cu, csrc/scene.cu,
 csrc/blur_chunk.cu, csrc/pool_rows.cu, csrc/winding.cu, csrc/part_io.cu,
-csrc/untile.cu, csrc/fe_blur.cu).
+csrc/untile.cu, csrc/fe_blur.cu, csrc/fe_turbulence.cu).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 output, launches its kernel on PyTorch's current stream through the ctypes
@@ -8,10 +8,11 @@ library (ops/cuda_lib.py) and raises if the launch returns a CUDA error.
 Tensors on the CPU go to the kernel's plain PyTorch version
 (ops/batch_exec.py, ops/filter_batch.apply_level, ops/coverage.winding,
 ops/part_io.py) instead; that is the only case that does.  A tensor on any
-other device raises.  `untile` and `fe_blur` take CUDA tensors alone: their
-plain versions are render_plan.tiles_to_layer's reshape and permute and
-ops/blur.fe_blur, and their callers (tiles_to_layer, Layer.convolve) choose
-by the device.
+other device raises.  `untile`, `fe_blur` and `fe_turbulence` take CUDA
+tensors alone: their plain versions are render_plan.tiles_to_layer's reshape
+and permute, ops/blur.fe_blur and ops/turbulence.turbulence_region, and their
+callers (tiles_to_layer, Layer.convolve, filter._apply) choose by the
+device.
 
 Each wrapper counts its kernel launches in its `launches` attribute, so a
 run can show that its main path went through the kernels
@@ -667,8 +668,57 @@ def fe_blur(image, taps, unpremultiply: bool):
 fe_blur.launches = 0
 
 
+# the spec's lattice tables as csrc/fe_turbulence.cu stages them: 2 x 256 + 2
+# entries (ops/turbulence.py lattice_tables)
+TURBULENCE_TABLE = 514
+
+
+def fe_turbulence(selector, gradient, offset, size, inverse, base_fx, base_fy,
+                  octaves: int, fractal: bool):
+    """A filter chain's feTurbulence on the card: (h, w, 4) f32, straight
+    alpha, of the lattice tables selector (514,) int32 and gradient (4, 514,
+    2) f32 (lattice_tables' arrays on a CUDA device) over h x w device
+    pixels (size) from offset, each pixel centre taken to user space by
+    inverse, the device-to-user transform's first two rows (2, 3).  One
+    launch, none for an empty region.  A tensor on the CPU raises:
+    turbulence.turbulence_region is the plain version, with these
+    arguments, and filter._apply keeps it there."""
+    device = selector.device
+    if not _kernel_device(device, "fe_turbulence"):
+        raise ValueError("fe_turbulence: the lattice tables must be on a CUDA device")
+    _check(selector, "selector", torch.int32, (TURBULENCE_TABLE,), device)
+    _check(gradient, "gradient", torch.float32, (4, TURBULENCE_TABLE, 2), device)
+    if selector.data_ptr() % 16 or gradient.data_ptr() % 16:
+        raise ValueError("fe_turbulence: selector and gradient must be 16-byte aligned")
+    inverse = np.asarray(inverse, dtype=np.float64)
+    if inverse.shape != (2, 3):
+        raise ValueError(f"fe_turbulence: inverse has shape {inverse.shape}, expected (2, 3)")
+    octaves = int(octaves)
+    if octaves < 1:
+        raise ValueError(f"fe_turbulence: {octaves} octaves, expected at least 1")
+    h, w = (int(s) for s in size)
+    off0, off1 = (int(o) for o in offset)
+    if h < 0 or w < 0 or max(abs(off0) + h, abs(off1) + w) > _INT32_MAX:
+        raise ValueError(f"fe_turbulence: a {h} x {w} region at {(off0, off1)}")
+    out = torch.empty((h, w, 4), dtype=torch.float32, device=device)
+    if h and w:
+        from . import cuda_lib
+
+        lib = cuda_lib.load()
+        rc = lib.svgr_fe_turbulence(selector.data_ptr(), gradient.data_ptr(), off0, off1, h,
+                                    w, *(float(v) for v in inverse.ravel()), float(base_fx),
+                                    float(base_fy), octaves, int(bool(fractal)),
+                                    out.data_ptr(), _stream(device))
+        _raise_on(rc, "fe_turbulence")
+        fe_turbulence.launches += 1
+    return out
+
+
+fe_turbulence.launches = 0
+
+
 KERNELS = (prepass_winding, scene_tiles, blur_chunk, pool_rows, winding, part_entry,
-           part_exit, untile, fe_blur)
+           part_exit, untile, fe_blur, fe_turbulence)
 
 
 def reset_launch_counts() -> None:

@@ -5,6 +5,11 @@ the spec's linear-congruential PRNG (host, integer math), and the per-pixel
 noise (two-level lattice gathers + s-curve lerp, octave sum) runs as one
 vectorised pass over the pixel grid.  The reference declares FE_TURBULENCE
 but never executes it (svgrasterize.py:1732).
+
+turbulence_region (turbulence_impl over a region's pixel centres) is the
+plain version and the CPU's path: on a CUDA device filter._apply runs
+csrc/fe_turbulence.cu (ops/fused_exec.fe_turbulence, the same arguments),
+the same arithmetic in one launch, which the card's tests hold against it.
 """
 
 from __future__ import annotations
@@ -116,3 +121,18 @@ def turbulence_impl(selector, gradient, x, y, base_fx, base_fy, octaves: int,
             ratio = ratio * 2.0
         out.append((total + 1.0) / 2.0 if fractal else total)
     return torch.clamp(torch.stack(out, dim=-1), 0.0, 1.0).to(torch.float32)
+
+
+def turbulence_region(selector, gradient, offset, size, inverse, base_fx, base_fy,
+                      octaves: int, fractal: bool):
+    """RGBA turbulence (h, w, 4) over h x w device pixels (size) from offset,
+    each pixel centre taken to user space by inverse, the device-to-user
+    transform's first two rows (2, 3); on the tables' device.  The plain
+    version of fused_exec.fe_turbulence, with its arguments."""
+    (h, w), dev = size, gradient.device
+    pr = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + offset[0] + 0.5
+    pc = torch.arange(w, dtype=torch.float32, device=dev)[None, :] + offset[1] + 0.5
+    ux = float(inverse[0][0]) * pr + float(inverse[0][1]) * pc + float(inverse[0][2])
+    uy = float(inverse[1][0]) * pr + float(inverse[1][1]) * pc + float(inverse[1][2])
+    ux, uy = torch.broadcast_tensors(ux, uy)
+    return turbulence_impl(selector, gradient, ux, uy, base_fx, base_fy, octaves, fractal)
